@@ -1,0 +1,49 @@
+"""tpurpn_torch — the Region Proposal Network of ``tpurpn`` in PyTorch and CUDA.
+
+A port of the JAX package ``tpurpn`` (which stays the reference) to PyTorch
+on an NVIDIA H100. It mirrors ``tpurpn``'s module and function names and its
+public layouts — NHWC images, (B, fm, fm, 4A) / (B, fm, fm, A) head outputs,
+[y1, x1, y2, x2] boxes — and runs on ``cuda`` unless the caller passes
+``device="cpu"``. Each TPU kernel of ``tpurpn`` on the ported path is a
+hand-written CUDA kernel here (``tpurpn_torch.kernels``) with a plain
+PyTorch version beside it; the CPU runs the plain versions.
+
+Ported so far: the MobileNetV2 serving path (config, anchors, boxes,
+backbone, model, weight conversion, fused IR stage, fused proposal
+selection, preprocess, ``make_predict_fn``).
+"""
+
+from .config import HyperParams, feature_map_shape_for, get_hyper_params
+from .anchors import generate_anchors, generate_base_anchors
+from .boxes import (
+    batched_non_max_suppression,
+    clip_bboxes,
+    denormalize_bboxes,
+    generate_iou_map,
+    get_bboxes_from_deltas,
+    get_deltas_from_bboxes,
+    non_max_suppression,
+    normalize_bboxes,
+)
+from .model import fold_batch_norm, get_model, init_model
+from .predict import make_predict_fn
+
+__all__ = [
+    "HyperParams",
+    "get_hyper_params",
+    "feature_map_shape_for",
+    "generate_anchors",
+    "generate_base_anchors",
+    "get_deltas_from_bboxes",
+    "get_bboxes_from_deltas",
+    "generate_iou_map",
+    "non_max_suppression",
+    "batched_non_max_suppression",
+    "normalize_bboxes",
+    "denormalize_bboxes",
+    "clip_bboxes",
+    "get_model",
+    "init_model",
+    "fold_batch_norm",
+    "make_predict_fn",
+]
