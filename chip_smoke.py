@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py [--seed N] [--batch 128]
 
-Drives the MobileNetV2 serving path at full width (500x500 images, batch 128,
-seeded random weights with perturbed BatchNorm statistics, folded) through
-the entry points a user calls, and checks it:
+Drives three paths of the port through the entry points a user calls, each
+with every kernel's launch count set to 0 just before it and read just
+after: the MobileNetV2 serving path at full width (500x500 images, batch
+128, seeded random weights with perturbed BatchNorm statistics, folded); the
+training step of VGG16 and of MobileNetV2 (500x500, batch 8, SyntheticVOC
+375x500 frames, augment on, seeded random weights); and the standalone
+batched NMS at BASELINE config 4 (top-2000 -> 300 at batch 32), with the IoU
+matching entry beside it. It checks them:
 
 1. builds the port's CUDA kernels from ``tpurpn_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
@@ -21,8 +26,23 @@ the entry points a user calls, and checks it:
    read just after; checks shapes, finiteness, ``0 <= num_valid <= 300`` and
    that both kernels launched; holds the fast forward against the plain
    folded forward at the bf16 tolerance;
-4. times each kernel and its plain version, the stages of the path and both
-   end-to-end variants with CUDA events after a warm-up.
+4. holds the target kernel (config 3: VGG16 anchors N=8,649, B=8, M=8)
+   and the IoU-matching kernel against their plain versions: labels and
+   indices bit for bit, delta rows 2-3 (logf) at rel 1e-6; then M=64 with
+   padded rows, an image without GT and a 22,500-anchor grid. Holds the NMS kernel against its
+   plain version on the top-2000 of 32 serving images' decoded candidates
+   bit for bit (keep mask and count), and at ties, duplicate boxes,
+   all-invalid rows, n not a multiple of the block and a kept list too
+   large for shared memory;
+5. takes 5 train steps per backbone on a fixed batch, flip mask and words:
+   finite losses, the last below the first, one target-kernel launch per step, BatchNorm
+   running statistics moved (MobileNetV2); then one step with the plain
+   target path on the same flip mask and words gives the same labels and
+   the same loss at the bf16 tolerance;
+6. times each kernel and its plain version, the stages of the serving path
+   and of each train step, both serving variants, the train steps and the
+   config-4 NMS with CUDA events after a warm-up; a torch.profiler trace of
+   each end-to-end run gives the card's busy time and idle share.
 
 Output: the card's name and power limit (``nvidia-smi``), JSON lines of
 measurements, one ``{"kernels": [...]}`` line, and last the line
@@ -36,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -80,6 +101,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, iters: int = 3):
+    """(device busy ms, device operations) per call of ``fn`` from a
+    torch.profiler trace: the summed durations of the operations that ran on
+    the card (kernels, copies, fills), which one stream runs one after
+    another. (None, 0) when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    return (busy_us / iters / 1e3 if busy_us else None), len(on_device) / iters
 
 
 def nvidia_smi() -> str:
@@ -135,7 +175,8 @@ def proposal_bound(torch, boxes, scores, pre, max_output, thr):
     idx = top_candidates(scores, pre)
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
     sel, nv = batched_non_max_suppression(
-        top_boxes, torch.gather(scores, 1, idx), max_output, thr, presorted=True)
+        top_boxes, torch.gather(scores, 1, idx), max_output, thr, presorted=True,
+        use_kernel=False)
     keep = torch.zeros((B, pre + 1), dtype=torch.int64, device=boxes.device)
     keep.scatter_(1, torch.where(sel >= 0, sel.long(), pre), 1)
     keep = keep[:, :pre]
@@ -148,6 +189,199 @@ def proposal_bound(torch, boxes, scores, pre, max_output, thr):
     t_ops = tests * IOU_OPS / PEAK_F32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def targets_bound(B, N, M):
+    """(bound_ms, bound_by) of target assignment: B*N*M IoU tests, 2 x 29
+    counting passes over the N keys of each image (compare + add) plus the
+    key and label work (~16 operations an anchor); the bytes of the anchors,
+    GT rows, labels and words read once and of the deltas and labels
+    written once."""
+    ops = B * N * M * IOU_OPS + B * N * (2 * 29 * 2 + 16)
+    nbytes = N * 16 + B * M * 20 + B * 2 * N * 4 + B * N * 20
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def matching_bound(B, N, M):
+    """(bound_ms, bound_by) of IoU matching: B*N*M IoU tests and two
+    compares each; anchors and GT read once, three outputs written once."""
+    ops = B * N * M * (IOU_OPS + 2)
+    nbytes = N * 16 + B * M * 16 + B * N * 8 + B * M * 4
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nms_bound(torch, keep, valid, max_output, block):
+    """(bound_ms, bound_by) of the NMS keep mask on this run's boxes: the
+    blocks up to the one in which an image's count reaches max_output are
+    decided (the stop rule); each valid box there is tested against the
+    boxes kept before it; those boxes are read once, the mask and counts
+    written once."""
+    B, n = keep.shape
+    k = keep.long()
+    kept_before = torch.cumsum(k, 1) - k
+    # first position whose block ends the walk: where the count reaches max_output
+    reached = torch.cumsum(k, 1) >= max_output
+    first = torch.where(reached.any(1), reached.float().argmax(1), n - 1)
+    end = torch.clamp((first // block + 1) * block, max=n)
+    pos = torch.arange(n, device=keep.device)[None]
+    visited = (pos < end[:, None]) & valid
+    tests = int((kept_before * visited).sum())
+    nbytes = int(end.sum()) * 17 + B * n + B * 4
+    t_ops, t_bytes = tests * IOU_OPS / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels):
+    return {n: k.launches for n, k in kernels.items()}
+
+
+def check_targets(torch, fused, plain, args, what):
+    """Target kernel vs plain: labels bit for bit, delta rows 0-1 bit for
+    bit, rows 2-3 (logf vs log) at rel 1e-6. Returns max |delta diff|."""
+    (dk, lk), (dp, lp) = fused(*args), plain(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(lk, lp), f"target kernel vs plain labels differ ({what})")
+    require(torch.equal(dk[..., :2], dp[..., :2]), f"target kernel delta rows 0-1 differ ({what})")
+    torch.testing.assert_close(dk[..., 2:], dp[..., 2:], rtol=1e-6, atol=0,
+                               msg=f"target kernel delta rows 2-3 ({what})")
+    return float((dk - dp).abs().max())
+
+
+def max_diff(torch, a, b) -> float:
+    """Largest |a - b| over two tensors of one shape (bool and int too)."""
+    require(a.shape == b.shape, f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def check_matching(torch, fused, plain, anchors, gt, what):
+    """IoU-matching kernel vs plain, bit for bit. Returns the largest
+    difference over merged IoU, best GT and best anchor."""
+    k, p = fused(anchors, gt), plain(anchors, gt)
+    torch.cuda.synchronize()
+    for a, b, name in zip(k, p, ("merged_iou", "best_gt", "best_anchor")):
+        require(torch.equal(a, b), f"IoU-matching kernel vs plain differ in {name} ({what})")
+    return max(max_diff(torch, a, b) for a, b in zip(k, p))
+
+
+def check_nms(torch, fused, plain, args, what):
+    """NMS kernel vs plain, bit for bit. Returns (kept counts, the largest
+    difference over keep mask and count)."""
+    (kk, ck), (kp, cp) = fused(*args), plain(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(kk, kp) and torch.equal(ck, cp),
+            f"NMS kernel vs plain differ ({what}): counts {ck.tolist()[:8]} vs {cp.tolist()[:8]}")
+    return ck, max(max_diff(torch, kk, kp), max_diff(torch, ck, cp))
+
+
+def random_gt(torch, gen, B, M, n_valid, dev):
+    yx = torch.rand((B, M, 2), generator=gen, device=dev) * 0.6
+    hw = torch.rand((B, M, 2), generator=gen, device=dev) * 0.25 + 0.1
+    gt = torch.cat([yx, torch.clamp(yx + hw, max=1.0)], dim=-1)
+    gt[:, n_valid:] = 0.0
+    labels = torch.full((B, M), -1, dtype=torch.int32, device=dev)
+    labels[:, :n_valid] = 1
+    return gt, labels
+
+
+def train_phase(torch, backbone, args, dev, kernels, steps=5):
+    """Steps of make_train_step at full width on a fixed batch; returns
+    (phase line, timing line, launch counts of the steps)."""
+    import copy
+
+    from tpurpn_torch import (create_train_state, get_hyper_params, get_model, init_model,
+                              make_train_step)
+    from tpurpn_torch.anchors import generate_anchors
+    from tpurpn_torch.data import SyntheticVOC, preprocess_batch
+    from tpurpn_torch.losses import reg_loss, rpn_cls_loss
+    from tpurpn_torch.target import calculate_rpn_actual_outputs, target_rand_bits
+    from tpurpn_torch.train import TrainState, default_optimizer
+
+    B = args.train_batch
+    hp = get_hyper_params(backbone)  # 500x500; VGG16 31x31 (8,649 anchors), MobileNetV2 32x32
+    ds = SyntheticVOC(num_samples=B, seed=args.seed)  # 375x500 frames, <= 8 boxes
+    imgs, boxes, labels = (torch.from_numpy(a).to(dev) for a in next(ds.batches(B)))
+    model = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device=dev)
+    state = create_train_state(hp, model=model)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    step = make_train_step(hp, augment=True)
+    bn = getattr(model.backbone, "bn_Conv1", None)
+    var0 = None if bn is None else bn.running_var.clone()
+
+    # a fixed objective: the same batch, flip mask and words every step
+    flip = torch.rand((B,), generator=gen, device=dev) < 0.5
+    bits = target_rand_bits(gen, B, hp.total_anchors, dev)
+    reset(kernels)
+    metrics = [step(state, imgs, boxes, labels, flip=flip, rand_bits=bits)[1]
+               for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(x) for x in losses), f"{backbone}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{backbone}: loss did not fall {losses}")
+    require(launches["targets"] == steps,
+            f"{backbone}: {launches['targets']} target-kernel launches in {steps} steps")
+    moved = None
+    if bn is not None:
+        moved = float((bn.running_var - var0).abs().max())
+        require(moved > 0, "MobileNetV2: BatchNorm running variance did not move")
+
+    # the same step with the plain target path on the same draws
+    anchors = generate_anchors(hp, dev)
+    _, aug_boxes = preprocess_batch(imgs, boxes, hp.img_size, augment=True, flip=flip)
+    lk = calculate_rpn_actual_outputs(anchors, aug_boxes, labels, hp, rand_bits=bits)[1]
+    lp = calculate_rpn_actual_outputs(anchors, aug_boxes, labels, hp, rand_bits=bits,
+                                      use_kernel=False)[1]
+    require(torch.equal(lk, lp), f"{backbone}: kernel and plain target labels differ")
+    pair = {}
+    for use_kernel in (None, False):
+        m = copy.deepcopy(state.model)
+        st = TrainState(model=m, optimizer=default_optimizer(m.parameters()))
+        _, mt = make_train_step(hp, augment=True, use_kernel=use_kernel)(
+            st, imgs, boxes, labels, flip=flip, rand_bits=bits)
+        pair[use_kernel] = mt
+    require(int(pair[None]["num_pos"]) == int(pair[False]["num_pos"]),
+            f"{backbone}: num_pos differs between kernel and plain targets")
+    loss_err, loss_ok = close_err(pair[None]["loss"], pair[False]["loss"])
+    require(loss_ok, f"{backbone}: loss with kernel vs plain targets: {loss_err}")
+
+    # timing: the whole step, the card's busy share in it, then its stages
+    step_ms = time_ms(torch, lambda: step(state, imgs, boxes, labels, gen), 5)
+    busy_ms, device_ops = device_profile(torch, lambda: step(state, imgs, boxes, labels, gen))
+    images, aug_boxes = preprocess_batch(imgs, boxes, hp.img_size, augment=True, flip=flip)
+    deltas, tl = calculate_rpn_actual_outputs(anchors, aug_boxes, labels, hp, rand_bits=bits)
+    opt = state.optimizer
+    model.train()
+
+    def fwd_bwd():
+        opt.zero_grad(set_to_none=True)
+        reg, cls = model(images)
+        (reg_loss(deltas, reg) + rpn_cls_loss(tl, cls)).backward()
+
+    stages = {
+        "preprocess": time_ms(torch, lambda: preprocess_batch(
+            imgs, boxes, hp.img_size, augment=True, flip=flip), 10),
+        "targets": time_ms(torch, lambda: calculate_rpn_actual_outputs(
+            anchors, aug_boxes, labels, hp, rand_bits=bits), 10),
+        "forward_backward": time_ms(torch, fwd_bwd, 5),
+        "optimizer": time_ms(torch, opt.step, 10),
+    }
+    model.eval()
+    phase = {"phase": f"train_{backbone}", "batch": B, "img_size": hp.img_size,
+             "anchors": hp.total_anchors, "steps": steps, "losses": losses,
+             "launches": launches, "running_var_moved": moved,
+             "kernel_vs_plain_loss_abs_err": loss_err}
+    timing = {"phase": f"train_{backbone}_ms", "batch": B, "ms_per_step": step_ms,
+              "img_per_s": B / step_ms * 1e3, "device_busy_ms": busy_ms,
+              "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / step_ms,
+              "device_ops_per_step": device_ops, **stages}
+    return phase, timing, launches
 
 
 def check_proposals(torch, out, B, topn) -> None:
@@ -166,6 +400,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--train-batch", type=int, default=8)
     args = ap.parse_args()
 
     import torch
@@ -180,7 +415,12 @@ def main() -> int:
     from tpurpn_torch.kernels import _build
     from tpurpn_torch.kernels.ir_stage import (
         fused_ir_stage, fused_ir_stage_plain, pack_stage_weights)
-    from tpurpn_torch.kernels.proposal import fused_proposals, fused_proposals_plain
+    from tpurpn_torch.kernels.proposal import fused_proposals, fused_proposals_plain, top_candidates
+    from tpurpn_torch.kernels.targets import fused_iou_matching, fused_rpn_targets
+    from tpurpn_torch.kernels.nms import nms_keep, nms_keep_plain
+    from tpurpn_torch.boxes import batched_non_max_suppression
+    from tpurpn_torch.data import SyntheticVOC
+    from tpurpn_torch.target import iou_matching, iou_matching_plain, rpn_targets_plain
     from tpurpn_torch.model import apply_rpn_head, to_device
     from tpurpn_torch.predict import decode_outputs, make_predict_fn
     from tpurpn_torch.anchors import generate_anchors
@@ -198,10 +438,11 @@ def main() -> int:
 
     # 1. build every kernel of the path, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    _build.build(["proposal", "ir_stage"])
+    sources = ("proposal", "ir_stage", "targets", "nms")
+    _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
-             for n in ("proposal", "ir_stage")}
+             for n in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     # the model: seeded random weights, BN statistics perturbed, then folded
@@ -236,8 +477,10 @@ def main() -> int:
         anchors = generate_anchors(hp, dev)
         boxes, scores = decode_outputs(anchors, ref_reg, ref_cls, hp)
         pr_k = fused_proposals(boxes, scores, pre, thr, topn)
+        nms_keep.launches = 0
         pr_p = fused_proposals_plain(boxes, scores, pre, thr, topn)
         torch.cuda.synchronize()
+        require(nms_keep.launches == 0, "the proposal kernel's plain version reached a kernel")
         pr_err = max(float((pr_k[k].float() - pr_p[k].float()).abs().max()) for k in pr_p)
         for k in pr_p:
             require(torch.equal(pr_k[k], pr_p[k]), f"proposal kernel vs plain differ in {k}")
@@ -279,19 +522,90 @@ def main() -> int:
                 "duplicate candidates must leave two proposals an image")
     emit({"phase": "kernel_edge_cases", **edges})
 
-    # 3. the main path, each variant with the counts at 0 just before it
-    kernels = {"ir_stage": fused_ir_stage, "proposals": fused_proposals}
+    # the target and IoU-matching kernels at config 3: VGG16 anchors, B=8
+    # SyntheticVOC samples (M=8), words from a seeded generator
+    hp3 = get_hyper_params("vgg16")
+    anchors3 = generate_anchors(hp3, dev)
+    tb = args.train_batch
+    _, gt3, lab3 = (torch.from_numpy(a).to(dev)
+                    for a in next(SyntheticVOC(num_samples=tb, seed=args.seed).batches(tb)))
+    words3 = torch.randint(-(2**31), 2**31, (tb, 2, hp3.total_anchors), generator=dgen,
+                           device=dev, dtype=torch.int32)
+    tg_args = (anchors3, gt3, lab3, words3, hp3)
+    tg_err = check_targets(torch, fused_rpn_targets, rpn_targets_plain, tg_args, "config 3")
+    mt_err = check_matching(torch, fused_iou_matching, iou_matching_plain, anchors3, gt3,
+                            "config 3")
+    tgt_edges = {}
+    hp_big = get_hyper_params("vgg16", img_size=800)  # 22,500 anchors: a 15-bit index field
+    for name, (hpe, Bt, M, nv) in {"M64_padded": (hp3, 4, 64, 20), "no_gt": (hp3, 2, 8, 0),
+                                   "N22500": (hp_big, 2, 8, 5)}.items():
+        an = anchors3 if hpe is hp3 else generate_anchors(hpe, dev)
+        gt, lab = random_gt(torch, dgen, Bt, M, nv, dev)
+        w = torch.randint(-(2**31), 2**31, (Bt, 2, hpe.total_anchors), generator=dgen,
+                          device=dev, dtype=torch.int32)
+        tgt_edges[f"targets_{name}_max_abs_err"] = check_targets(
+            torch, fused_rpn_targets, rpn_targets_plain, (an, gt, lab, w, hpe), name)
+        tgt_edges[f"matching_{name}_max_abs_err"] = check_matching(
+            torch, fused_iou_matching, iou_matching_plain, an, gt, name)
+    emit({"phase": "targets_kernel_vs_plain", "B": tb, "N": hp3.total_anchors,
+          "M": int(gt3.shape[1]), "max_abs_err": tg_err, "matching_max_abs_err": mt_err,
+          "tolerance": "labels and indices bit-exact, deltas rows 0-1 bit-exact, rows 2-3 rel 1e-6",
+          **tgt_edges})
+
+    # the NMS kernel at config 4: the top-2000 of 32 serving images' candidates
+    nb, n4, out4, thr4 = min(32, B), 2000, 300, 0.7
+    top4 = top_candidates(scores[:nb], n4)
+    boxes4 = torch.gather(boxes[:nb], 1, top4[..., None].expand(-1, -1, 4)).contiguous()
+    scores4 = torch.gather(scores[:nb], 1, top4)
+    valid4 = torch.ones((nb, n4), dtype=torch.bool, device=dev)
+    cnt4, nms_err = check_nms(torch, nms_keep, nms_keep_plain, (boxes4, valid4, thr4, out4),
+                              "config 4")
+    nms_edges = {"config4_count_min": int(cnt4.min()), "config4_count_max": int(cnt4.max())}
+    y1x1 = torch.rand((4, 1037, 2), generator=dgen, device=dev) * 0.6
+    hw = torch.rand((4, 1037, 2), generator=dgen, device=dev) * 0.38 + 0.02
+    rnd = torch.cat([y1x1, y1x1 + hw], dim=-1)
+    dup = rnd.clone()
+    dup[:] = torch.tensor([0.1, 0.1, 0.3, 0.3], device=dev)
+    dup[:, ::5] = torch.tensor([0.6, 0.6, 0.9, 0.9], device=dev)
+    half_invalid = torch.ones((4, 1037), dtype=torch.bool, device=dev)
+    half_invalid[:2] = False
+    ties = torch.floor(torch.rand((4, 1037), generator=dgen, device=dev) * 7) / 7
+    tie_order = torch.sort(ties, dim=1, descending=True, stable=True).indices
+    tie_boxes = torch.gather(rnd, 1, tie_order[..., None].expand(-1, -1, 4)).contiguous()
+    all_valid = torch.ones((4, 1037), dtype=torch.bool, device=dev)
+    for name, a in {
+        "random_n1037": (rnd, all_valid, 0.7, 300),
+        "ties_sorted_stably": (tie_boxes, all_valid, 0.5, 100),
+        "duplicates": (dup, all_valid, 0.7, 300),
+        "all_invalid_rows": (rnd, half_invalid, 0.7, 50),
+        "block_256": (rnd, all_valid, 0.6, 40, 256),
+        # 3,000 kept boxes of 1,024-wide blocks exceed shared memory: the
+        # kept list lives in the global scratch row
+        "kept_in_global_memory": (torch.cat([rnd, rnd, rnd], 1)[:2, :3000].contiguous(),
+                                  all_valid[:2].repeat(1, 3)[:, :3000], 0.9, 3000, 1024),
+    }.items():
+        cnt, err = check_nms(torch, nms_keep, nms_keep_plain, a, name)
+        nms_edges[f"{name}_counts"], nms_edges[f"{name}_max_abs_err"] = cnt.tolist(), err
+    require(nms_edges["duplicates_counts"] == [2] * 4, "duplicates must leave two boxes an image")
+    require(nms_edges["all_invalid_rows_counts"][:2] == [0, 0], "all-invalid rows kept boxes")
+    emit({"phase": "nms_kernel_vs_plain", "B": nb, "n": n4, "max_output": out4,
+          "max_abs_err": nms_err,
+          "tolerance": "bit-exact keep mask and count", **nms_edges})
+
+    # 3. the main paths, each with every count at 0 just before it
+    kernels = {"ir_stage": fused_ir_stage, "proposals": fused_proposals,
+               "targets": fused_rpn_targets, "iou_matching": fused_iou_matching,
+               "nms": nms_keep}
     predict = make_predict_fn(folded, hp, fast=True, device=dev)
     predict_u8 = make_predict_fn(folded, hp, fast=True, from_uint8=True, device=dev)
     launches = {}
     for variant, fn, x in (("bf16", predict, images), ("uint8", predict_u8, frames)):
-        for k in kernels.values():
-            k.launches = 0
+        reset(kernels)
         out = fn(x)
         torch.cuda.synchronize()
-        launches[variant] = {n: k.launches for n, k in kernels.items()}
-        for n, c in launches[variant].items():
-            require(c > 0, f"{variant} main path never launched the {n} kernel")
+        launches[variant] = counts(kernels)
+        for n in ("ir_stage", "proposals"):
+            require(launches[variant][n] > 0, f"{variant} main path never launched the {n} kernel")
         check_proposals(torch, out, B, topn)
         emit({"phase": f"main_path_{variant}", "launches": launches[variant],
               "num_valid_min": int(out["num_valid"].min()),
@@ -306,6 +620,34 @@ def main() -> int:
     emit({"phase": "fast_vs_plain_forward", "rpn_reg_max_abs_err": reg_err,
           "rpn_cls_max_abs_err": cls_err, "ref_reg_absmax": float(ref_reg.abs().max()),
           "tolerance": f"rel {TOL_REL} of max(1, |ref|max)"})
+
+    # the training step of each backbone at full width
+    train_timing = {}
+    for backbone in ("vgg16", "mobilenet_v2"):
+        phase, timing, launches[backbone] = train_phase(torch, backbone, args, dev, kernels)
+        emit(phase)
+        train_timing[backbone] = timing
+
+    # standalone NMS at config 4 (unsorted top-2000 -> 300, batch 32) and
+    # the IoU-matching entry on the config-3 batch
+    reset(kernels)
+    nms_sel, nms_nv = batched_non_max_suppression(boxes4, scores4, out4, thr4)
+    torch.cuda.synchronize()
+    launches["nms_path"] = counts(kernels)
+    require(launches["nms_path"]["nms"] > 0, "batched_non_max_suppression never launched nms")
+    ref_sel, ref_nv = batched_non_max_suppression(boxes4, scores4, out4, thr4, use_kernel=False)
+    require(torch.equal(nms_sel, ref_sel) and torch.equal(nms_nv, ref_nv),
+            "batched_non_max_suppression: kernel and plain routes select differently")
+    reset(kernels)
+    iou_matching(anchors3, gt3)
+    torch.cuda.synchronize()
+    launches["matching_path"] = counts(kernels)
+    require(launches["matching_path"]["iou_matching"] > 0, "iou_matching never launched its kernel")
+    emit({"phase": "nms_and_matching_paths", "launches_nms": launches["nms_path"],
+          "launches_matching": launches["matching_path"],
+          "num_valid_min": int(nms_nv.min()), "num_valid_mean": float(nms_nv.float().mean())})
+    for timing in train_timing.values():
+        emit({**timing, "nvidia_smi": smi})
 
     # 4. timing (CUDA events, after warm-up)
     with torch.no_grad():
@@ -334,7 +676,10 @@ def main() -> int:
             ("plain_backbone_bf16", make_predict_fn(folded, hp, device=dev), images),
         ):
             ms = time_ms(torch, lambda: fn(x), 5)
-            e2e[name] = {"ms_per_batch": ms, "img_per_s": B / ms * 1e3}
+            busy_ms, device_ops = device_profile(torch, lambda: fn(x))
+            e2e[name] = {"ms_per_batch": ms, "img_per_s": B / ms * 1e3,
+                         "device_busy_ms": busy_ms, "device_ops": device_ops,
+                         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / ms}
         # the prefix layer by layer (cuDNN convs), each on its real input
         bb = folded.backbone
         prefix = [("Conv1", lambda h: relu6(bb.Conv1(h)))] + [
@@ -344,12 +689,30 @@ def main() -> int:
         for name, layer in prefix:
             prefix_ms[name] = time_ms(torch, lambda: layer(h), 5)
             h = layer(h)
+        tg_ms = time_ms(torch, lambda: fused_rpn_targets(*tg_args), 20)
+        tg_plain_ms = time_ms(torch, lambda: rpn_targets_plain(*tg_args), 5)
+        mt_ms = time_ms(torch, lambda: fused_iou_matching(anchors3, gt3), 20)
+        mt_plain_ms = time_ms(torch, lambda: iou_matching_plain(anchors3, gt3), 5)
+        nms_args = (boxes4, valid4, thr4, out4)
+        nms_ms = time_ms(torch, lambda: nms_keep(*nms_args), 20)
+        nms_plain_ms = time_ms(torch, lambda: nms_keep_plain(*nms_args), 3)
+        bnms_ms = time_ms(torch, lambda: batched_non_max_suppression(
+            boxes4, scores4, out4, thr4), 20)
+        bnms_plain_ms = time_ms(torch, lambda: batched_non_max_suppression(
+            boxes4, scores4, out4, thr4, use_kernel=False), 3)
+    emit({"phase": "config4_nms_ms", "batch": nb, "n": n4, "max_output": out4,
+          "nms_keep_kernel": nms_ms, "nms_keep_plain": nms_plain_ms,
+          "batched_nms_kernel_route": bnms_ms, "batched_nms_plain_route": bnms_plain_ms,
+          "nvidia_smi": smi})
     emit({"phase": "stages_ms", "batch": B, **stages})
     emit({"phase": "prefix_layers_ms", "batch": B, **prefix_ms})
     emit({"phase": "end_to_end", "batch": B, "nvidia_smi": smi, **e2e})
 
     ir_bound, ir_by = ir_stage_bound(feat6, weights, blocks)
     pr_bound, pr_by = proposal_bound(torch, boxes, scores, pre, topn, thr)
+    tg_bound, tg_by = targets_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
+    mt_bound, mt_by = matching_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
+    nms_bd, nms_by = nms_bound(torch, nms_keep(*nms_args)[0], valid4, out4, 128)
     emit({"kernels": [
         {"name": "fused_ir_stage", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/ir_stage.cu",
@@ -367,6 +730,27 @@ def main() -> int:
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
          "plain_ms": pr_plain_ms, "bound_ms": pr_bound, "bound_by": pr_by,
          "library_ms": None},
+        {"name": "fused_rpn_targets", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/targets.cu",
+         "replaces": "tpurpn/kernels/target_pallas.py:355",
+         "launches": launches["vgg16"]["targets"],
+         "launches_mobilenet_v2": launches["mobilenet_v2"]["targets"],
+         "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
+         "ms": tg_ms, "plain_ms": tg_plain_ms, "bound_ms": tg_bound, "bound_by": tg_by,
+         "library_ms": None},
+        {"name": "fused_iou_matching", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/targets.cu",
+         "replaces": "tpurpn/kernels/target_pallas.py:413",
+         "launches": launches["matching_path"]["iou_matching"],
+         "max_abs_err": mt_err, "match": "bit-exact", "ms": mt_ms, "plain_ms": mt_plain_ms,
+         "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
+        {"name": "nms_keep", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/nms.cu",
+         "replaces": "tpurpn/kernels/nms_pallas.py:191",
+         "launches": launches["nms_path"]["nms"],
+         "max_abs_err": nms_err, "match": "bit-exact", "ms": nms_ms,
+         "plain_ms": nms_plain_ms,
+         "bound_ms": nms_bd, "bound_by": nms_by, "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""The plain versions of the port's two CUDA kernels held against ``tpurpn``.
+"""The plain versions of the port's serving kernels held against ``tpurpn``,
+and the dispatch of every kernel wrapper.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 each against its plain version there); here the CPU wrappers dispatch to the
@@ -12,7 +13,10 @@ plain versions.
   tests/test_proposal_pallas.py, plus one case against the Pallas kernel in
   interpret mode.
 * Dispatch: a tensor off the CPU (``meta`` here) never reaches the plain
-  version; it goes to the kernel's build, or the wrapper rejects it.
+  version; it goes to the kernel's build, or the wrapper rejects it. This
+  covers every wrapper: IR stage, proposals, targets, IoU matching, NMS
+  (the plain versions of the last three are held against ``tpurpn`` in
+  tests/test_torch_targets.py and tests/test_torch_nms.py).
 """
 
 import numpy as np
@@ -27,7 +31,8 @@ from tpurpn.inference import _FUSED_BLOCKS, _PREFIX_MODULES
 from tpurpn.kernels.ir_stage_pallas import pack_stage_weights as j_pack_stage_weights
 from tpurpn.kernels.proposal_pallas import fused_proposals_planes
 from tpurpn.predict import generate_proposals as j_generate_proposals
-from tpurpn_torch.kernels import _build, ir_stage, proposal
+import tpurpn_torch
+from tpurpn_torch.kernels import _build, ir_stage, nms, proposal, targets
 
 from test_torch_model import IMG_SIZES, close, flax_mobilenet, images, port
 
@@ -166,15 +171,28 @@ def _meta(shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("kernel", ["ir_stage", "proposals"])
+HP_VGG = tpurpn_torch.get_hyper_params("vgg16")
+
+
+@pytest.mark.parametrize("kernel", ["ir_stage", "proposals", "targets", "iou_matching", "nms"])
 def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
     if kernel == "ir_stage":
         weights, blocks = _meta_stage()
         fn = ir_stage.fused_ir_stage
         args = (_meta((2, 32, 32, 64), torch.bfloat16), weights, blocks)
-    else:
+    elif kernel == "proposals":
         fn = proposal.fused_proposals
         args = (_meta((2, 500, 4)), _meta((2, 500)), 400, 0.7, 50)
+    elif kernel == "targets":
+        fn = targets.fused_rpn_targets
+        args = (_meta((8649, 4)), _meta((2, 8, 4)), _meta((2, 8), torch.int32),
+                _meta((2, 2, 8649), torch.int32), HP_VGG)
+    elif kernel == "iou_matching":
+        fn = targets.fused_iou_matching
+        args = (_meta((8649, 4)), _meta((2, 8, 4)))
+    else:
+        fn = nms.nms_keep
+        args = (_meta((2, 500, 4)), _meta((2, 500), torch.bool), 0.7, 50)
     launches = fn.launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fn(*args)
@@ -194,3 +212,24 @@ def test_wrappers_reject_inputs_their_kernels_do_not_take(no_nvcc):
     ):
         with pytest.raises(ValueError):
             proposal.fused_proposals(boxes, scores, pre, 0.7, 50)
+    gt, lab, bits = _meta((2, 8, 4)), _meta((2, 8), torch.int32), _meta((2, 2, 900), torch.int32)
+    for a, g, lb, w in (
+        (_meta((900, 4), torch.float64), gt, lab, bits),
+        (_meta((900, 4)), _meta((2, 0, 4)), _meta((2, 0), torch.int32), bits),
+        (_meta((900, 4)), gt, lab, _meta((2, 2, 900))),
+        (_meta((900, 4)), gt, lab, _meta((2, 2, 800), torch.int32)),
+        (_meta((900,)), gt, lab, bits),
+    ):
+        with pytest.raises(ValueError):
+            targets.fused_rpn_targets(a, g, lb, w, HP_VGG)
+    with pytest.raises(ValueError):
+        targets.fused_iou_matching(_meta((900, 4)), _meta((2, 8, 5)))
+    for b, v, block in (
+        (_meta((2, 500, 4), torch.float16), _meta((2, 500), torch.bool), 128),
+        (_meta((2, 500, 4)), _meta((2, 500)), 128),
+        (_meta((2, 500, 4)), _meta((2, 400), torch.bool), 128),
+        (_meta((2, 500, 4)), _meta((2, 500), torch.bool), 100),
+        (_meta((2, 500, 4)), _meta((2, 500), torch.bool), 2048),
+    ):
+        with pytest.raises(ValueError):
+            nms.nms_keep(b, v, 0.7, 50, block=block)

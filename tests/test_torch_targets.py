@@ -1,0 +1,208 @@
+"""RPN target assignment of the port held against ``tpurpn``.
+
+Seeded numpy GT boxes and ``tpurpn.target.target_rand_bits``' words go
+through ``tpurpn`` (its jnp path, and its Pallas kernels in interpret mode)
+and through the port's plain path, which the target kernel's wrappers run on
+CPU tensors (``chip_smoke.py`` holds the CUDA kernel against it on the
+card). Against the jnp path, labels and matching agree bit for bit; deltas
+at rel 1e-6 (rows 2-3 go through log, whose rounding may differ by an ulp).
+
+``tpurpn``'s interpreted Pallas kernel computes some IoUs one ulp away from
+its own jnp twin (XLA rounds the fused kernel differently), which can flip
+a best-anchor tie; tests/test_target_pallas.py picks data without such a
+flip, and so do the comparisons with the kernel here (seed 1, guarded), with
+the merged IoU at atol 1e-6 as there.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+import tpurpn
+import tpurpn.target as j_target
+from tpurpn.kernels import target_pallas
+import tpurpn_torch
+from tpurpn_torch import target
+from tpurpn_torch.kernels import targets as k_targets
+
+DELTA_RTOL = 1e-6
+
+
+def hp_pair(img=160):
+    return (tpurpn.get_hyper_params("vgg16", img_size=img),
+            tpurpn_torch.get_hyper_params("vgg16", img_size=img))
+
+
+def random_gt(rng, B, M, n_valid):
+    boxes = np.zeros((B, M, 4), np.float32)
+    for b in range(B):
+        for i in range(n_valid):
+            y, x = rng.uniform(0, 0.6, 2)
+            h, w = rng.uniform(0.1, 0.35, 2)
+            boxes[b, i] = (y, x, min(y + h, 1), min(x + w, 1))
+    labels = np.full((B, M), -1, np.int32)
+    labels[:, :n_valid] = 1
+    return boxes, labels
+
+
+def words(key, B, N):
+    return np.array(j_target.target_rand_bits(jax.random.key(key), B, N))
+
+
+def port_targets(hp, gt, labels, bits):
+    anchors = tpurpn_torch.generate_anchors(hp)
+    return k_targets.fused_rpn_targets(  # CPU -> plain version
+        anchors, torch.from_numpy(gt), torch.from_numpy(labels), torch.from_numpy(bits), hp)
+
+
+def assert_targets_equal(got, ref_deltas, ref_labels):
+    deltas, labels = got
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(ref_labels).reshape(labels.shape))
+    np.testing.assert_allclose(deltas.numpy(), np.asarray(ref_deltas).reshape(deltas.shape),
+                               rtol=DELTA_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("B,M,n_valid", [(2, 8, 3), (3, 64, 20)])
+def test_targets_match_tpurpn_jnp_path(rng, B, M, n_valid):
+    jhp, thp = hp_pair()
+    gt, labels = random_gt(rng, B, M, n_valid)
+    key = jax.random.key(7)
+    ref_d, ref_l = j_target.calculate_rpn_actual_outputs(
+        tpurpn.generate_anchors(jhp), jnp.asarray(gt), jnp.asarray(labels), jhp, key,
+        use_pallas=False)
+    bits = np.array(j_target.target_rand_bits(key, B, jhp.total_anchors))
+    launches = k_targets.fused_rpn_targets.launches
+    got_d, got_l = target.calculate_rpn_actual_outputs(
+        tpurpn_torch.generate_anchors(thp), torch.from_numpy(gt), torch.from_numpy(labels),
+        thp, rand_bits=torch.from_numpy(bits))
+    assert k_targets.fused_rpn_targets.launches == launches
+    assert got_d.shape == ref_d.shape and got_l.shape == ref_l.shape
+    assert_targets_equal((got_d, got_l), ref_d, ref_l)
+    lab = got_l.numpy().reshape(B, -1)
+    assert ((lab == 1).sum(-1) <= thp.total_pos_bboxes).all()
+    assert ((lab != -1).sum(-1) == thp.total_pos_bboxes + thp.total_neg_bboxes).all()
+
+
+def kernel_agreeing_gt(jhp, B, M, n_valid):
+    """GT boxes on which tpurpn's interpreted kernel matches as its twin does."""
+    gt, labels = random_gt(np.random.default_rng(1), B, M, n_valid)
+    anchors = tpurpn.generate_anchors(jhp)
+    twin = j_target.iou_matching(anchors, jnp.asarray(gt))
+    kern = target_pallas.fused_iou_matching(anchors, jnp.asarray(gt), interpret=True)
+    for t, k in zip(twin[1:], kern[1:]):
+        np.testing.assert_array_equal(np.asarray(t), np.asarray(k))
+    np.testing.assert_allclose(np.asarray(twin[0]), np.asarray(kern[0]), atol=1e-6)
+    return gt, labels, kern
+
+
+@pytest.mark.parametrize("B,M,n_valid", [(2, 8, 3), (3, 64, 20)])
+def test_targets_match_pallas_kernel_interpreted(B, M, n_valid):
+    jhp, thp = hp_pair()
+    gt, labels, _ = kernel_agreeing_gt(jhp, B, M, n_valid)
+    bits = words(3, B, jhp.total_anchors)
+    ref_d, ref_l = target_pallas.fused_rpn_targets(
+        tpurpn.generate_anchors(jhp), jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(bits),
+        jhp, interpret=True)
+    assert_targets_equal(port_targets(thp, gt, labels, bits), ref_d, ref_l)
+
+
+def test_targets_empty_gt():
+    jhp, thp = hp_pair()
+    gt = np.zeros((2, 8, 4), np.float32)
+    labels = np.full((2, 8), -1, np.int32)
+    bits = words(1, 2, jhp.total_anchors)
+    ref_d, ref_l = target_pallas.fused_rpn_targets(
+        tpurpn.generate_anchors(jhp), jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(bits),
+        jhp, interpret=True)
+    deltas, lab = port_targets(thp, gt, labels, bits)
+    assert_targets_equal((deltas, lab), ref_d, ref_l)
+    assert not (lab == 1).any() and not deltas.any()
+    assert ((lab == 0).sum(-1) == thp.total_pos_bboxes + thp.total_neg_bboxes).all()
+
+
+def test_negative_words_shift_logically(rng):
+    """torch's >> on int32 is arithmetic; the keys of words with the top bit
+    set must still be tpurpn's (lax.shift_right_logical)."""
+    jhp, thp = hp_pair()
+    N = jhp.total_anchors
+    gt, labels, _ = kernel_agreeing_gt(jhp, 2, 8, 3)
+    raw = rng.integers(0, 2**31, size=(2, 2, N), dtype=np.int64)
+    bits = (raw | (1 << 31)).astype(np.uint32).view(np.int32)  # all negative
+    assert (bits < 0).all()
+    keys = target.selection_keys(torch.from_numpy(bits[:, 0]), N)
+    np.testing.assert_array_equal(
+        keys.numpy(), np.asarray(j_target.selection_keys(jnp.asarray(bits[:, 0]), N)))
+    assert (keys >= 0).all() and (keys < 2**28).all()
+    ref_d, ref_l = target_pallas.fused_rpn_targets(
+        tpurpn.generate_anchors(jhp), jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(bits),
+        jhp, interpret=True)
+    assert_targets_equal(port_targets(thp, gt, labels, bits), ref_d, ref_l)
+
+
+@pytest.mark.parametrize("k_max", [None, 40])
+def test_select_by_keys_matches_tpurpn(rng, k_max):
+    B, N = 3, 900
+    cand = rng.uniform(size=(B, N)) < 0.3
+    w = words(5, B, N)[:, 0]
+    k_eff = np.array([0.0, 17.0, 40.0], np.float32)
+    ref = j_target.select_by_keys(jnp.asarray(cand), jnp.asarray(w), jnp.asarray(k_eff),
+                                  k_max=k_max)
+    got = target.select_by_keys(torch.from_numpy(cand), torch.from_numpy(w),
+                                torch.from_numpy(k_eff), k_max=k_max)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.sum(-1).tolist() == [0, 17, 40]
+
+
+@pytest.mark.parametrize("B,M,n_valid", [(2, 8, 3), (3, 64, 20)])
+def test_iou_matching_matches_tpurpn(B, M, n_valid):
+    jhp, thp = hp_pair()
+    gt, _, kern = kernel_agreeing_gt(jhp, B, M, n_valid)
+    twin = j_target.iou_matching(tpurpn.generate_anchors(jhp), jnp.asarray(gt))
+    got = k_targets.fused_iou_matching(tpurpn_torch.generate_anchors(thp),
+                                       torch.from_numpy(gt))  # CPU -> plain version
+    assert got[1].dtype == got[2].dtype == torch.int32
+    for g, r in zip(got, twin):  # the jnp twin: bit for bit
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(kern[0]), atol=1e-6)
+    for g, k in zip(got[1:], kern[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(k))
+
+
+def test_iou_matching_ties_pick_the_first(rng):
+    jhp, thp = hp_pair()
+    box = [0.25, 0.25, 0.55, 0.6]
+    gt = np.array([[box, box, box], [[0.0] * 4] * 3], np.float32)
+    ref = j_target.iou_matching(tpurpn.generate_anchors(jhp), jnp.asarray(gt))
+    got = target.iou_matching(tpurpn_torch.generate_anchors(thp), torch.from_numpy(gt))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert (got[1] == 0).all() and (got[2][1] == 0).all()
+
+
+def test_rand_bits_and_generator_draws_are_seeded(rng):
+    _, thp = hp_pair()
+    gt, labels = random_gt(rng, 2, 8, 3)
+    anchors = tpurpn_torch.generate_anchors(thp)
+    args = (anchors, torch.from_numpy(gt), torch.from_numpy(labels), thp)
+    a = target.calculate_rpn_actual_outputs(*args, torch.Generator().manual_seed(1))
+    b = target.calculate_rpn_actual_outputs(*args, torch.Generator().manual_seed(1))
+    c = target.calculate_rpn_actual_outputs(*args, torch.Generator().manual_seed(2))
+    assert torch.equal(a[1], b[1]) and not torch.equal(a[1], c[1])
+    bits = target.target_rand_bits(torch.Generator().manual_seed(1), 2, thp.total_anchors)
+    assert bits.shape == (2, 2, thp.total_anchors) and bits.dtype == torch.int32
+    assert (bits < 0).any() and (bits > 0).any()
+    d = target.calculate_rpn_actual_outputs(*args, rand_bits=bits, use_kernel=False)
+    assert torch.equal(a[1], d[1])
+    with pytest.raises(ValueError, match="rand_bits"):
+        target.calculate_rpn_actual_outputs(*args)
+
+
+@pytest.mark.parametrize("k_max", [None, 12])
+def test_random_select_mask_keeps_a_subset(rng, k_max):
+    mask = torch.from_numpy(rng.uniform(size=(3, 200)) < 0.4)
+    limit = torch.tensor([0, 5, 12])
+    sel = target.random_select_mask(mask, limit, torch.Generator().manual_seed(0), k_max=k_max)
+    assert not (sel & ~mask).any()
+    assert sel.sum(-1).tolist() == torch.minimum(limit, mask.sum(-1)).tolist()

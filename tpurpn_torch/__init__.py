@@ -10,7 +10,11 @@ PyTorch version beside it; the CPU runs the plain versions.
 
 Ported so far: the MobileNetV2 serving path (config, anchors, boxes,
 backbone, model, weight conversion, fused IR stage, fused proposal
-selection, preprocess, ``make_predict_fn``).
+selection, preprocess, ``make_predict_fn``); the single-GPU training step
+for both backbones (VGG16, target assignment with the fused target kernel,
+losses, ``SyntheticVOC``, ``make_train_step`` with exact gradient
+accumulation, ``make_eval_loss_fn``); and the standalone NMS kernel behind
+``batched_non_max_suppression``.
 """
 
 from .config import HyperParams, feature_map_shape_for, get_hyper_params
@@ -27,6 +31,14 @@ from .boxes import (
 )
 from .model import fold_batch_norm, get_model, init_model
 from .predict import make_predict_fn
+from .target import calculate_rpn_actual_outputs, target_rand_bits
+from .train import (
+    TrainState,
+    create_train_state,
+    default_optimizer,
+    make_eval_loss_fn,
+    make_train_step,
+)
 
 __all__ = [
     "HyperParams",
@@ -46,4 +58,11 @@ __all__ = [
     "init_model",
     "fold_batch_norm",
     "make_predict_fn",
+    "calculate_rpn_actual_outputs",
+    "target_rand_bits",
+    "TrainState",
+    "create_train_state",
+    "default_optimizer",
+    "make_train_step",
+    "make_eval_loss_fn",
 ]

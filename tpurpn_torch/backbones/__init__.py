@@ -1,5 +1,6 @@
-"""Feature backbones of the port. VGG16 arrives with the training slice."""
+"""Feature backbones of the port."""
 
 from .mobilenet_v2 import MobileNetV2Backbone
+from .vgg16 import VGG16Backbone
 
-__all__ = ["MobileNetV2Backbone"]
+__all__ = ["MobileNetV2Backbone", "VGG16Backbone"]

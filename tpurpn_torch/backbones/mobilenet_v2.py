@@ -40,6 +40,13 @@ _STAGES = (
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
+    if x.requires_grad:
+        # jnp.minimum(jnp.maximum(x, 0), 6): a tie at 0 or 6 splits the
+        # gradient in half, where clamp's passes all of it
+        return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
+    # one op, where the pair costs serving 27 %: chip_smoke.py on an H100 at
+    # batch 128 timed the folded prefix at 24.4 ms with clamp and 35.5 ms
+    # with minimum(maximum())
     return torch.clamp(x, 0.0, 6.0)
 
 
@@ -74,13 +81,31 @@ class Conv(nn.Conv2d):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with Keras eps/momentum, computed in f32 and cast back to
-    the input dtype (flax's ``_normalize`` promotes to the f32 statistics)."""
+    the input dtype (flax's ``_normalize`` promotes to the f32 statistics).
+
+    Eval mode normalizes with the running statistics. Train mode is flax's
+    ``BatchNorm(use_running_average=False)``: the batch mean and the *biased*
+    batch variance, in f32, normalize x (one fused op forward and one
+    backward), and the running statistics move to m * old + (1 - m) * batch
+    with m = ``bn_momentum``. torch's own train mode would store the
+    unbiased variance, so the statistics are updated here.
+    """
 
     def __init__(self, ch, bn_momentum: float = 0.99):
         super().__init__(ch, eps=1e-3, momentum=1.0 - bn_momentum)
+        self.bn_momentum = bn_momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        if not self.training:
+            return super().forward(x.float()).to(x.dtype)
+        xf = x.float()
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            m = self.bn_momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return y.to(x.dtype)
 
 
 class _InvertedResidual(nn.Module):

@@ -7,7 +7,9 @@ Every function keeps the JAX package's arithmetic op for op. The NMS is the
 same exact, blockwise greedy NMS as ``tpurpn.boxes._nms_keep_sorted_batched``
 (identical selection to ``tf.image.non_max_suppression``); given the same f32
 candidates it selects the same boxes bit for bit. It is also the plain
-version of the proposal kernel (``tpurpn_torch.kernels.proposal``).
+version of the proposal kernel (``tpurpn_torch.kernels.proposal``) and of the
+NMS kernel (``tpurpn_torch.kernels.nms``), which ``batched_non_max_suppression``
+runs on CUDA tensors, as ``tpurpn`` runs its Pallas kernel on a TPU.
 """
 
 from __future__ import annotations
@@ -188,6 +190,7 @@ def batched_non_max_suppression(
     score_threshold: float = float("-inf"),
     block: int = 128,
     presorted: bool = False,
+    use_kernel: bool | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy NMS with ``tf.image.non_max_suppression`` semantics.
 
@@ -200,6 +203,10 @@ def batched_non_max_suppression(
       score_threshold: boxes scoring <= this are dropped up front.
       block: tile size of the blockwise greedy pass.
       presorted: boxes/scores are already in descending score order.
+      use_kernel: None (default) computes the keep mask with the CUDA kernel
+        (``kernels.nms.nms_keep``) on CUDA tensors and in plain PyTorch on
+        CPU tensors; False always takes the plain path. Both select the same
+        boxes.
 
     Returns:
       (indices (B, k) int32 in descending score order, -1 past num_valid;
@@ -224,9 +231,18 @@ def batched_non_max_suppression(
         )
     valid = scores_sorted > score_threshold
 
-    keep = _nms_keep_sorted_batched(
-        boxes_sorted, valid, float(iou_threshold), block, max_output_size
-    )
+    if use_kernel is None:
+        use_kernel = boxes.device.type != "cpu"
+    if use_kernel:
+        from .kernels.nms import nms_keep
+
+        keep, _ = nms_keep(
+            boxes_sorted, valid, float(iou_threshold), max_output_size, block
+        )
+    else:
+        keep = _nms_keep_sorted_batched(
+            boxes_sorted, valid, float(iou_threshold), block, max_output_size
+        )
 
     # first `max_output_size` kept boxes per image, in score order: the
     # smallest keys of (kept first, then by position); all keys are distinct

@@ -1,10 +1,11 @@
-"""Weight carrier: ``tpurpn`` (flax) variable trees -> the port's modules.
+"""Weight carrier: ``tpurpn`` (flax) variable trees <-> the port's modules.
 
 ``from_flax_variables(hp, variables_np)`` takes the JAX package's variable
 tree as nested dicts of numpy arrays — the unfolded tree (``params`` +
-``batch_stats``) or the BN-folded ``{"params"}`` tree of
-``tpurpn.model.fold_batch_norm`` — and returns an ``RPN`` holding the same
-numbers. It imports nothing of JAX: callers hand over numpy arrays.
+``batch_stats``), the BN-folded ``{"params"}`` tree of
+``tpurpn.model.fold_batch_norm``, or a VGG16 tree — and returns an ``RPN``
+holding the same numbers; ``to_flax_numpy(model)`` goes back. It imports
+nothing of JAX: callers hand over numpy arrays.
 
 Layout mapping (flax -> torch):
 
@@ -64,11 +65,41 @@ def flax_to_state_dict(variables_np) -> Dict[str, torch.Tensor]:
 
 def from_flax_variables(hp: HyperParams, variables_np, device=None) -> RPN:
     """Build an ``RPN`` on ``device`` (default: cuda) from a ``tpurpn``
-    variable tree; ``fold_bn`` follows the tree (no ``batch_stats`` = folded)."""
-    model = RPN(hp, fold_bn="batch_stats" not in variables_np)
+    variable tree. A MobileNetV2 tree without BatchNorm parameters is the
+    folded one; VGG16 has no BatchNorm either way."""
+    has_bn = any(_is_bn(path[-2]) for path, _ in _flatten(variables_np["params"]))
+    model = RPN(hp, fold_bn=hp.backbone == "mobilenet_v2" and not has_bn)
     sd = flax_to_state_dict(variables_np)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd[k] = v
     model.load_state_dict(sd, strict=True)
     return to_device(model, device)
+
+
+_FLAX_PARAM = {"weight": "kernel", "bias": "bias"}
+_FLAX_BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def to_flax_numpy(model: RPN):
+    """The inverse of ``from_flax_variables``: the port's weights as a
+    ``tpurpn`` variable tree of numpy arrays ({"params"}, plus
+    {"batch_stats"} when the model has BatchNorms)."""
+    tree = {"params": {}}
+    for key, v in model.state_dict().items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = v.detach().float().cpu().numpy()
+        if _is_bn(path[-1]):
+            collection, leaf = _FLAX_BN[leaf]
+        else:
+            collection, leaf = "params", _FLAX_PARAM[leaf]
+            if leaf == "kernel":
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = tree.setdefault(collection, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

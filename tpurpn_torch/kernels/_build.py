@@ -7,9 +7,9 @@ content and the flags, and is loaded with ``ctypes``. Pointers and the CUDA
 stream cross as ``c_void_p``. Every C entry returns ``cudaGetLastError()``
 (or the first error before the launch); ``check`` raises on a non-zero code.
 
-``-fmad=false``: no multiply-add is contracted into an FMA, so the proposal
-kernel's IoU rounds op for op as ``tpurpn``'s; no fast math, so division is
-IEEE.
+``-fmad=false``: no multiply-add is contracted into an FMA, so the IoU of
+the proposal, target and NMS kernels rounds op for op as ``tpurpn``'s; no
+fast math, so division is IEEE.
 """
 
 from __future__ import annotations
@@ -41,6 +41,14 @@ SIGNATURES = {
     "ir_stage": {
         "ir_block": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
         "ir_expand": (P, P, P, P, I, I, I, I, P),
+    },
+    "targets": {
+        "iou_matching": (P, P, P, P, P, I, I, I, P),
+        "rpn_targets": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I,
+                        F, F, F, F, P),
+    },
+    "nms": {
+        "nms_keep": (P, P, P, P, P, P, I, I, I, I, I, F, P),
     },
 }
 

@@ -15,3 +15,20 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ __nv_bfloat16 f32_to_bf16(float v) { return __float2bfloat16_rn(v); }
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// Box geometry op for op as tpurpn.boxes (bbox_area, generate_iou_map) on
+// [y1, x1, y2, x2] boxes. The files that use it are built with -fmad=false
+// and without fast math: no product is contracted into an FMA and the
+// division is IEEE, so every IoU rounds as the plain versions' do. The IoU
+// is symmetric bit for bit (every operation used commutes).
+__device__ __forceinline__ float box_area(float y1, float x1, float y2, float x2) {
+  return fmaxf(y2 - y1, 0.0f) * fmaxf(x2 - x1, 0.0f);
+}
+__device__ __forceinline__ float box_area(float4 b) { return box_area(b.x, b.y, b.z, b.w); }
+
+__device__ __forceinline__ float box_iou(float4 a, float area_a, float4 b, float area_b) {
+  const float ih = fmaxf(fminf(a.z, b.z) - fmaxf(a.x, b.x), 0.0f);
+  const float iw = fmaxf(fminf(a.w, b.w) - fmaxf(a.y, b.y), 0.0f);
+  const float inter = ih * iw;
+  return inter / fmaxf(area_a + area_b - inter, 1e-8f);
+}

@@ -37,10 +37,6 @@ namespace {
 
 constexpr int kThreads = 256;  // also the candidate chunk width
 
-__device__ __forceinline__ float box_area(float y1, float x1, float y2, float x2) {
-  return fmaxf(y2 - y1, 0.0f) * fmaxf(x2 - x1, 0.0f);
-}
-
 __global__ void __launch_bounds__(kThreads) proposal_kernel(
     const float* __restrict__ boxes, const float* __restrict__ scores,
     const long long* __restrict__ order, float* __restrict__ roi_boxes,
@@ -84,15 +80,13 @@ __global__ void __launch_bounds__(kThreads) proposal_kernel(
     __syncthreads();
     for (int j = 0; j < n && kept < max_output; ++j) {
       const float y1 = cy1[j], x1 = cx1[j], y2 = cy2[j], x2 = cx2[j];
+      const float4 cand = make_float4(y1, x1, y2, x2);
       const float area_c = carea[j];
       // a score <= -inf (or NaN) is no candidate, as in the plain version
       int hit = !(cscore[j] > -INFINITY);
       for (int k = t; k < kept && !hit; k += kThreads) {
-        const float ih = fmaxf(fminf(y2, ky2[k]) - fmaxf(y1, ky1[k]), 0.0f);
-        const float iw = fmaxf(fminf(x2, kx2[k]) - fmaxf(x1, kx1[k]), 0.0f);
-        const float inter = ih * iw;
-        const float uni = fmaxf(area_c + karea[k] - inter, 1e-8f);
-        hit = inter / uni > iou_threshold;
+        const float4 kb = make_float4(ky1[k], kx1[k], ky2[k], kx2[k]);
+        hit = box_iou(cand, area_c, kb, karea[k]) > iou_threshold;
       }
       if (!__syncthreads_or(hit)) {
         if (kept % kThreads == t) {

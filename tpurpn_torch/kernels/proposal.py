@@ -45,7 +45,7 @@ def fused_proposals_plain(
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     sel, num_valid = batched_non_max_suppression(
         top_boxes, top_scores, max_output_size=max_output,
-        iou_threshold=iou_threshold, block=block, presorted=True,
+        iou_threshold=iou_threshold, block=block, presorted=True, use_kernel=False,
     )
     valid = sel >= 0
     safe_sel = torch.clamp(sel.long(), min=0)

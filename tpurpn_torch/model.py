@@ -7,9 +7,10 @@ relu)`` ("rpn_conv"), and two 1x1 branches — ``rpn_cls`` (anchor_count
 objectness logits) and ``rpn_reg`` (4*anchor_count deltas). Output order
 matches the reference: ``(rpn_reg, rpn_cls)``, NHWC, float32.
 
-Compute is bf16 with f32 parameters; the head outputs are cast to f32. Only
-the MobileNetV2 backbone is ported so far; VGG16 arrives with the training
-slice.
+Compute is bf16 with f32 parameters; the head outputs are cast to f32. The
+backbone is MobileNetV2 or VGG16, as ``hp.backbone`` says. ``model.train()``
+is ``tpurpn``'s ``apply(..., train=True)``: it puts the BatchNorms in
+batch-statistics mode (``backbones.mobilenet_v2.BatchNorm``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .backbones import MobileNetV2Backbone
+from .backbones import MobileNetV2Backbone, VGG16Backbone
 from .backbones.mobilenet_v2 import BatchNorm, Conv
 from .config import HyperParams
 
@@ -48,18 +49,22 @@ class RPN(nn.Module):
 
     def __init__(self, hp: HyperParams, fold_bn: bool = False):
         super().__init__()
-        if hp.backbone != "mobilenet_v2":
-            raise NotImplementedError(
-                f"backbone {hp.backbone!r} is not ported yet; mobilenet_v2 is"
-            )
         self.hp = hp
-        self.fold_bn = fold_bn
         self.dtype = getattr(torch, hp.compute_dtype)
-        self.backbone = MobileNetV2Backbone(
-            dtype=self.dtype, fold_bn=fold_bn, bn_momentum=hp.bn_momentum
-        )
+        if hp.backbone == "vgg16":
+            self.fold_bn = False  # no BatchNorm to fold
+            self.backbone = VGG16Backbone(dtype=self.dtype)
+            feat_ch = VGG16Backbone.out_channels
+        elif hp.backbone == "mobilenet_v2":
+            self.fold_bn = fold_bn
+            self.backbone = MobileNetV2Backbone(
+                dtype=self.dtype, fold_bn=fold_bn, bn_momentum=hp.bn_momentum
+            )
+            feat_ch = 576
+        else:
+            raise ValueError(f"unknown backbone {hp.backbone!r}")
         # rpn_conv (3x3, 512, relu) -> rpn_cls (1x1, A) / rpn_reg (1x1, 4A)
-        self.rpn_conv = Conv(576, 512, 3, bias=True)
+        self.rpn_conv = Conv(feat_ch, 512, 3, bias=True)
         self.rpn_cls = Conv(512, hp.anchor_count, 1, bias=True)
         self.rpn_reg = Conv(512, 4 * hp.anchor_count, 1, bias=True)
 
@@ -118,8 +123,11 @@ def fold_batch_norm(model: RPN) -> RPN:
     and bias' = beta - mean * g (+ conv_bias * g), g = gamma / sqrt(var + eps):
     the arithmetic of ``tpurpn.model.fold_batch_norm``, op for op. Returns a
     new ``RPN(fold_bn=True)`` on the same device; ``model`` is unchanged.
+    VGG16 has no BatchNorm and is returned as it is.
     """
     hp = model.hp
+    if hp.backbone != "mobilenet_v2":
+        return model
     folded = RPN(hp, fold_bn=True)
     eps = 1e-3
     src = model.backbone
