@@ -18,8 +18,9 @@ matching entry beside it. It checks them:
    main path's shapes: the fused IR stage on (B, 32, 32, 64) bf16 at the bf16
    tolerance (rel 0.02 of max(1, |ref|max)), the proposal kernel on decoded
    (B, 9216) candidates bit for bit; then both at edges the main path does
-   not reach (odd spatial sizes; score ties, duplicate boxes, fewer
-   candidates than topn);
+   not reach (S = 9, 17, 25, 31 and one image; score ties, duplicate boxes,
+   fewer candidates than topn, pre not a multiple of the chunk, the 300th
+   keep inside a chunk, an image of -inf scores, max_output > pre);
 3. runs ``make_predict_fn(fast=True)`` on B bf16 images and
    ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8 375x500
    frames, with every kernel's launch count set to 0 just before each run and
@@ -41,8 +42,11 @@ matching entry beside it. It checks them:
    the same loss at the bf16 tolerance;
 6. times each kernel and its plain version, the stages of the serving path
    and of each train step, both serving variants, the train steps and the
-   config-4 NMS with CUDA events after a warm-up; a torch.profiler trace of
-   each end-to-end run gives the card's busy time and idle share.
+   config-4 NMS with CUDA events after a warm-up; each IR-stage launch by
+   block shape, the kernel-ready weight pack, and the proposal wrapper's
+   sort apart from its selection kernel (with the candidates each image's
+   walk visits); a torch.profiler trace of each end-to-end run gives the
+   card's busy time and idle share.
 
 Output: the card's name and power limit (``nvidia-smi``), JSON lines of
 measurements, one ``{"kernels": [...]}`` line, and last the line
@@ -62,8 +66,9 @@ import sys
 import time
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
-# them, HBM3 bandwidth. A bound is the larger of bytes / bandwidth and the
-# sum over operand types of operations / peak.
+# them, HBM3 bandwidth. A bound is the larger of bytes / bandwidth and of
+# operations / peak for each operand type (the tensor cores and the f32
+# units run at the same time).
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -158,16 +163,17 @@ def ir_stage_bound(x, weights, blocks):
     c_last = blocks[-1][2] or blocks[-1][1]
     nbytes = (x.numel() * x.element_size() + px * c_last * 2
               + sum(w.numel() * w.element_size() for w in weights))
-    t_ops = mm / PEAK_BF16 + dw / PEAK_F32
+    t_ops = max(mm / PEAK_BF16, dw / PEAK_F32)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def proposal_bound(torch, boxes, scores, pre, max_output, thr):
-    """(bound_ms, bound_by) of top-``pre`` + greedy NMS on these candidates:
-    every score is read (the top-k needs all), the boxes the greedy walk
-    visits (up to the last keep) are read once, each visited candidate is
-    tested against the boxes kept before it, and the outputs are written."""
+    """(bound_ms, bound_by, visited) of top-``pre`` + greedy NMS on these
+    candidates: every score is read (the top-k needs all), the boxes the
+    greedy walk visits (up to the last keep; ``visited`` (B,) counts them)
+    are read once, each visited candidate is tested against the boxes kept
+    before it, and the outputs are written."""
     from tpurpn_torch.boxes import batched_non_max_suppression
     from tpurpn_torch.kernels.proposal import top_candidates
 
@@ -188,7 +194,8 @@ def proposal_bound(torch, boxes, scores, pre, max_output, thr):
     nbytes = B * N * 4 + int(visited.sum()) * 16 + B * max_output * 20 + B * 4
     t_ops = tests * IOU_OPS / PEAK_F32
     t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, visited
 
 
 def targets_bound(B, N, M):
@@ -412,10 +419,12 @@ def main() -> int:
     from tpurpn_torch import fold_batch_norm, get_hyper_params, get_model, init_model
     from tpurpn_torch.data import preprocess_batch
     from tpurpn_torch.inference import _FUSED_BLOCKS, fast_mobilenet_forward
-    from tpurpn_torch.kernels import _build
+    from tpurpn_torch.kernels import _build, ir_stage as ir_stage_module
     from tpurpn_torch.kernels.ir_stage import (
-        fused_ir_stage, fused_ir_stage_plain, pack_stage_weights)
-    from tpurpn_torch.kernels.proposal import fused_proposals, fused_proposals_plain, top_candidates
+        fused_ir_stage, fused_ir_stage_plain, kernel_pack, kernel_pack_cached,
+        pack_stage_weights, stage_weights_cached)
+    from tpurpn_torch.kernels.proposal import (
+        _select, fused_proposals, fused_proposals_plain, top_candidates)
     from tpurpn_torch.kernels.targets import fused_iou_matching, fused_rpn_targets
     from tpurpn_torch.kernels.nms import nms_keep, nms_keep_plain
     from tpurpn_torch.boxes import batched_non_max_suppression
@@ -491,18 +500,24 @@ def main() -> int:
                         "max_abs_err": pr_err, "tolerance": "bit-exact",
                         "num_valid_mean": float(pr_k["num_valid"].float().mean())}})
 
-    # ... and at the edges the main path does not reach: partial row tiles
-    # (odd S), score ties, duplicate boxes, fewer candidates than topn
+    # ... and at the edges the main path does not reach: partial 8-row
+    # tiles (S not a multiple of 8), one image; score ties, duplicate boxes,
+    # fewer candidates than topn, pre not a multiple of the 32-candidate
+    # chunk (nor of the 1,024-candidate page), the 300th keep inside a
+    # chunk, an image whose every score is -inf, max_output > pre
     edges = {}
     with torch.no_grad():
-        for S in (9, 17):
-            x = torch.rand((3, S, S, 64), generator=dgen, device=dev).to(torch.bfloat16)
+        for B_e, S in ((3, 9), (3, 17), (3, 25), (3, 31), (1, 32)):
+            x = torch.rand((B_e, S, S, 64), generator=dgen, device=dev).to(torch.bfloat16)
             err, ok = close_err(fused_ir_stage(x, weights, blocks),
                                 fused_ir_stage_plain(x, weights, blocks))
-            require(ok, f"IR stage kernel vs plain at S={S}: max abs err {err}")
-            edges[f"ir_stage_S{S}_max_abs_err"] = err
-        for case in ("ties", "duplicates", "fewer_than_topn"):
-            n = 160 if case == "fewer_than_topn" else 2000
+            require(ok, f"IR stage kernel vs plain at B={B_e}, S={S}: max abs err {err}")
+            edges[f"ir_stage_B{B_e}_S{S}_max_abs_err"] = err
+        for case, n, pre_e, out_e in (
+                ("ties", 2000, pre, topn), ("duplicates", 2000, pre, topn),
+                ("fewer_than_topn", 160, pre, topn), ("pre_1037", 2000, 1037, topn),
+                ("keep_300_mid_chunk", 2000, pre, topn), ("all_neg_inf_image", 2000, pre, topn),
+                ("max_output_gt_pre", 2000, 250, topn)):
             y1x1 = torch.rand((4, n, 2), generator=dgen, device=dev) * 0.6
             hw = torch.rand((4, n, 2), generator=dgen, device=dev) * 0.38 + 0.02
             cand = torch.cat([y1x1, y1x1 + hw], dim=-1)
@@ -513,13 +528,25 @@ def main() -> int:
                 cand[:] = torch.tensor([0.1, 0.1, 0.3, 0.3], device=dev)
                 cand[:, -1] = torch.tensor([0.6, 0.6, 0.9, 0.9], device=dev)
                 sc[:, -1] = 2.0
-            k = fused_proposals(cand, sc, min(pre, n), thr, topn)
-            p = fused_proposals_plain(cand, sc, min(pre, n), thr, topn)
+            if case == "keep_300_mid_chunk":  # disjoint boxes: every candidate kept
+                i = torch.arange(n, device=dev, dtype=torch.float32)
+                yx = torch.stack([torch.div(i, 50, rounding_mode="floor"), i % 50], -1) * 0.02
+                cand = torch.cat([yx, yx + 0.01], -1)[None].repeat(4, 1, 1).contiguous()
+            if case == "all_neg_inf_image":
+                sc[0] = -float("inf")
+            k = fused_proposals(cand, sc, min(pre_e, n), thr, out_e)
+            p = fused_proposals_plain(cand, sc, min(pre_e, n), thr, out_e)
             for key in p:
                 require(torch.equal(k[key], p[key]), f"proposal kernel vs plain, {case}: {key}")
             edges[f"proposals_{case}_num_valid"] = k["num_valid"].tolist()
         require(edges["proposals_duplicates_num_valid"] == [2] * 4,
                 "duplicate candidates must leave two proposals an image")
+        require(edges["proposals_keep_300_mid_chunk_num_valid"] == [topn] * 4
+                and topn % 32, "every disjoint candidate is kept up to topn, inside a chunk")
+        require(edges["proposals_all_neg_inf_image_num_valid"][0] == 0,
+                "an image without candidates keeps none")
+        require(max(edges["proposals_max_output_gt_pre_num_valid"]) <= 250,
+                "no more keeps than candidates")
     emit({"phase": "kernel_edge_cases", **edges})
 
     # the target and IoU-matching kernels at config 3: VGG16 anchors, B=8
@@ -598,10 +625,10 @@ def main() -> int:
                "nms": nms_keep}
     predict = make_predict_fn(folded, hp, fast=True, device=dev)
     predict_u8 = make_predict_fn(folded, hp, fast=True, from_uint8=True, device=dev)
-    launches = {}
+    launches, outs = {}, {}
     for variant, fn, x in (("bf16", predict, images), ("uint8", predict_u8, frames)):
         reset(kernels)
-        out = fn(x)
+        out = outs[variant] = fn(x)
         torch.cuda.synchronize()
         launches[variant] = counts(kernels)
         for n in ("ir_stage", "proposals"):
@@ -610,6 +637,18 @@ def main() -> int:
         emit({"phase": f"main_path_{variant}", "launches": launches[variant],
               "num_valid_min": int(out["num_valid"].min()),
               "num_valid_mean": float(out["num_valid"].float().mean())})
+
+    # serving under inference mode, with the weight caches emptied first so
+    # that the stage is packed inside it: the same proposals
+    ir_stage_module._stages.entries.clear()
+    ir_stage_module._packs.entries.clear()
+    with torch.inference_mode():
+        out_im = predict(images)
+    torch.cuda.synchronize()
+    for k in out_im:
+        require(torch.equal(out_im[k], outs["bf16"][k]),
+                f"serving under inference mode differs in {k}")
+    emit({"phase": "main_path_bf16_inference_mode", "same_as_bf16": True})
 
     with torch.no_grad():
         fast_reg, fast_cls = fast_mobilenet_forward(folded, images)
@@ -655,6 +694,20 @@ def main() -> int:
         ir_plain_ms = time_ms(torch, lambda: fused_ir_stage_plain(feat6, weights, blocks), 5)
         pr_ms = time_ms(torch, lambda: fused_proposals(boxes, scores, pre, thr, topn), 20)
         pr_plain_ms = time_ms(torch, lambda: fused_proposals_plain(boxes, scores, pre, thr, topn), 3)
+        # the wrapper's stable sort and the selection kernel, apart
+        order = top_candidates(scores, pre)
+        sort_ms = time_ms(torch, lambda: top_candidates(scores, pre), 20)
+        select_ms = time_ms(torch, lambda: _select(boxes, scores, order, thr, topn), 20)
+        # each IR-stage launch on its own input (the previous block's output)
+        ir_block_ms, h, wi = {}, feat6, 0
+        for i, blk in enumerate(blocks):
+            n_w = 2 if blk[2] is None else 6
+            wb, one = weights[wi:wi + n_w], (blk,)
+            wi += n_w
+            name = (f"block{i}_{blk[0]}to{blk[2]}" if blk[2] is not None
+                    else f"block{i}_tail_{blk[0]}to{blk[1]}")
+            ir_block_ms[name] = time_ms(torch, lambda: fused_ir_stage(h, wb, one), 20)
+            h = fused_ir_stage(h, wb, one)
         stages = {
             "preprocess_uint8": time_ms(torch, lambda: preprocess_batch(
                 frames, torch.zeros((B, 1, 4), device=dev), hp.img_size,
@@ -663,11 +716,17 @@ def main() -> int:
                 torch, lambda: folded.backbone(images, stop_after_block=6), 5),
             "pack_stage_weights": time_ms(torch, lambda: pack_stage_weights(
                 folded.backbone, _FUSED_BLOCKS, tail_expand="block_13_expand"), 5),
+            "kernel_pack": time_ms(torch, lambda: kernel_pack(weights, blocks), 5),
+            "stage_weights_cached_hit": time_ms(torch, lambda: kernel_pack_cached(
+                *stage_weights_cached(folded.backbone, _FUSED_BLOCKS,
+                                      tail_expand="block_13_expand")), 20),
             "ir_stage_kernel": ir_ms,
             "full_backbone_cudnn": time_ms(torch, lambda: folded.backbone(images), 5),
             "head": time_ms(torch, lambda: apply_rpn_head(folded, ir_k), 5),
             "decode": time_ms(torch, lambda: decode_outputs(anchors, ref_reg, ref_cls, hp), 5),
-            "proposals_kernel": pr_ms,
+            "proposals_wrapper": pr_ms,
+            "proposals_sort": sort_ms,
+            "proposals_select_kernel": select_ms,
         }
         e2e = {}
         for name, fn, x in (
@@ -705,11 +764,15 @@ def main() -> int:
           "batched_nms_kernel_route": bnms_ms, "batched_nms_plain_route": bnms_plain_ms,
           "nvidia_smi": smi})
     emit({"phase": "stages_ms", "batch": B, **stages})
+    emit({"phase": "ir_stage_blocks_ms", "batch": B, "nvidia_smi": smi, **ir_block_ms})
     emit({"phase": "prefix_layers_ms", "batch": B, **prefix_ms})
     emit({"phase": "end_to_end", "batch": B, "nvidia_smi": smi, **e2e})
 
     ir_bound, ir_by = ir_stage_bound(feat6, weights, blocks)
-    pr_bound, pr_by = proposal_bound(torch, boxes, scores, pre, topn, thr)
+    pr_bound, pr_by, visited = proposal_bound(torch, boxes, scores, pre, topn, thr)
+    emit({"phase": "proposals_ms", "batch": B, "pre": pre, "topn": topn, "nvidia_smi": smi,
+          "sort": sort_ms, "select_kernel": select_ms, "wrapper": pr_ms,
+          "visited_mean": float(visited.float().mean()), "visited_max": int(visited.max())})
     tg_bound, tg_by = targets_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     mt_bound, mt_by = matching_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     nms_bd, nms_by = nms_bound(torch, nms_keep(*nms_args)[0], valid4, out4, 128)
@@ -728,6 +791,7 @@ def main() -> int:
          "launches": launches["bf16"]["proposals"],
          "launches_uint8": launches["uint8"]["proposals"],
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
+         "select_ms": select_ms, "sort_ms": sort_ms,
          "plain_ms": pr_plain_ms, "bound_ms": pr_bound, "bound_by": pr_by,
          "library_ms": None},
         {"name": "fused_rpn_targets", "route": "cuda",

@@ -12,11 +12,18 @@ plain versions.
   on identical f32 candidates, over the cases of
   tests/test_proposal_pallas.py, plus one case against the Pallas kernel in
   interpret mode.
+* The IR-stage kernel's weight pack: per-chunk swizzled images that round
+  trip to ``pack_stage_weights``' layout, and caches that follow in-place
+  parameter updates.
+* The proposal kernel's chunked selection (32 candidates a round, a
+  fixpoint over in-chunk suppression rows, a stop inside a chunk), modelled
+  in PyTorch, selects exactly what the plain version selects.
 * Dispatch: a tensor off the CPU (``meta`` here) never reaches the plain
   version; it goes to the kernel's build, or the wrapper rejects it. This
-  covers every wrapper: IR stage, proposals, targets, IoU matching, NMS
-  (the plain versions of the last three are held against ``tpurpn`` in
-  tests/test_torch_targets.py and tests/test_torch_nms.py).
+  covers every wrapper: IR stage, proposals (and the selection entry alone),
+  targets, IoU matching, NMS (the plain versions of the last three are held
+  against ``tpurpn`` in tests/test_torch_targets.py and
+  tests/test_torch_nms.py).
 """
 
 import numpy as np
@@ -53,6 +60,122 @@ def test_pack_stage_weights_matches_tpurpn():
         r = r.reshape(-1) if r.shape[0] == 1 else r  # (1, C) bias rows
         assert g.shape == r.shape
         np.testing.assert_array_equal(g.float().numpy(), r)
+
+
+def _stage(img=128):
+    return ir_stage.pack_stage_weights(
+        port(img, folded=True).backbone, _FUSED_BLOCKS, tail_expand="block_13_expand"
+    )
+
+
+def _sw64_offset(rows, row, k):
+    """Element offset of (row, k) in the kernel's operand layout, as
+    csrc/ir_stage.cu's sw64 computes it in bytes: planes of 32 channels,
+    the 16-byte piece q of row r at q ^ ((r >> 1) & 3)."""
+    return (k // 32) * rows * 32 + row * 32 + ((((k % 32) // 8) ^ ((row >> 1) & 3)) * 8) + k % 8
+
+
+def _unpack(flat, spec):
+    """The inverse of ``ir_stage.kernel_pack`` for one block: (we (c_in,
+    c_exp), wp (c_exp, c_out) or None), in ``pack_stage_weights``' layout."""
+    c_in, c_exp, c_out, _ = spec
+    width = ir_stage.TAIL_NC if c_out is None else ir_stage.CH
+    chunks = flat.reshape(c_exp // width, -1)
+
+    def unswizzle(m, rows, k):
+        return m[:, ir_stage._sw64_index(rows, k)].reshape(-1, rows, k)
+
+    we = unswizzle(chunks[:, : width * c_in], width, c_in).reshape(c_exp, c_in).t()
+    if c_out is None:
+        return we, None
+    wp = unswizzle(chunks[:, width * c_in :], c_out, width).transpose(1, 2)
+    return we, wp.reshape(c_exp, c_out)
+
+
+@pytest.mark.parametrize("block", [0, 3, 4, 6], ids=["64to64", "64to96", "96to96", "tail"])
+def test_kernel_pack_round_trips_to_pack_stage_weights(block):
+    weights, blocks = _stage()
+    packs = ir_stage.kernel_pack(weights, blocks)
+    c_in, c_exp, c_out, _ = blocks[block]
+    wi = sum(2 if b[2] is None else 6 for b in blocks[:block])
+    we, wp = _unpack(packs[block], blocks[block])
+    assert torch.equal(we, weights[wi])
+    if c_out is None:
+        assert wp is None
+        width, chunk = ir_stage.TAIL_NC, ir_stage.TAIL_NC * c_in
+    else:
+        assert torch.equal(wp, weights[wi + 4])
+        width, chunk = ir_stage.CH, ir_stage.CH * (c_in + c_out)
+    flat = packs[block]
+    assert flat.dtype == torch.bfloat16 and flat.numel() == c_exp * (c_in + (c_out or 0))
+    assert (chunk * 2) % 16 == 0  # one bulk copy a chunk: a multiple of 16 bytes
+    # element (channel n of chunk c, input k) of the expand image, and
+    # (output o, channel n) of the project image, where the kernel reads them
+    rng = np.random.default_rng(block)
+    for c, n, k in zip(rng.integers(0, c_exp // width, 20), rng.integers(0, width, 20),
+                       rng.integers(0, c_in, 20)):
+        at = c * chunk + _sw64_offset(width, n, k)
+        assert flat[at] == weights[wi][k, c * width + n]
+        if c_out is not None:
+            o = int(k) % c_out
+            at = c * chunk + width * c_in + _sw64_offset(c_out, o, n)
+            assert flat[at] == weights[wi + 4][c * width + n, o]
+
+
+def test_kernel_pack_cache_serves_in_place_updates():
+    weights, blocks = _stage()
+    packs = ir_stage.kernel_pack_cached(weights, blocks)
+    assert ir_stage.kernel_pack_cached(weights, blocks) is packs
+    with torch.no_grad():
+        weights[0].mul_(2)  # an in-place update bumps the version
+    fresh = ir_stage.kernel_pack_cached(weights, blocks)
+    assert fresh is not packs
+    assert torch.equal(_unpack(fresh[0], blocks[0])[0], weights[0])
+    # equal values in other tensors are another key
+    other = tuple(w.clone() for w in weights)
+    assert ir_stage.kernel_pack_cached(other, blocks) is not fresh
+
+
+def test_stage_weights_cache_follows_parameter_updates():
+    bb = port(128, folded=True).backbone
+    args = (bb, _FUSED_BLOCKS, "block_13_expand")
+    weights, blocks = ir_stage.stage_weights_cached(*args)
+    assert ir_stage.stage_weights_cached(*args)[0] is weights
+    conv = bb.block_9.block_9_project
+    with torch.no_grad():
+        conv.weight.add_(1.0)
+    updated, _ = ir_stage.stage_weights_cached(*args)
+    assert updated is not weights
+    ref, ref_blocks = ir_stage.pack_stage_weights(*args)
+    assert ref_blocks == blocks
+    for a, b in zip(updated, ref):
+        assert torch.equal(a, b)
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 0.5)  # a new tensor
+    replaced, _ = ir_stage.stage_weights_cached(*args)
+    assert replaced is not updated
+    assert torch.equal(replaced[2 * 6 + 4], ir_stage.pack_stage_weights(*args)[0][2 * 6 + 4])
+    conv.weight.data = conv.weight.data * 2.0  # a new storage under the same parameter
+    moved, _ = ir_stage.stage_weights_cached(*args)
+    assert moved is not replaced
+    assert torch.equal(moved[2 * 6 + 4], ir_stage.pack_stage_weights(*args)[0][2 * 6 + 4])
+
+
+def test_weight_caches_under_inference_mode():
+    bb = port(128, folded=True).backbone
+    args = (bb, _FUSED_BLOCKS, "block_13_expand")
+    with torch.inference_mode():
+        weights, blocks = ir_stage.stage_weights_cached(*args)
+        assert ir_stage.stage_weights_cached(*args)[0] is weights
+        assert not any(w.is_inference() for w in weights)  # so they key the pack cache
+        packs = ir_stage.kernel_pack_cached(weights, blocks)
+        assert ir_stage.kernel_pack_cached(weights, blocks) is packs
+        # weights made in inference mode carry no version: packed afresh, not cached
+        inf_weights, _ = ir_stage.pack_stage_weights(*args)
+        assert any(w.is_inference() for w in inf_weights)
+        got = ir_stage.kernel_pack_cached(inf_weights, blocks)
+        assert got is not ir_stage.kernel_pack_cached(inf_weights, blocks)
+    for a, b in zip(got, packs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("img", IMG_SIZES)
@@ -142,6 +265,77 @@ def test_proposal_plain_matches_pallas_kernel_interpreted(rng):
     np.testing.assert_array_equal(got["roi_scores"].numpy(), np.asarray(ref["roi_scores"]))
 
 
+def _chunked_selection(boxes, scores, pre, thr, max_output, chunk=32):
+    """csrc/proposal.cu's selection, one image at a time: rounds of `chunk`
+    candidates in score order, each tested against the boxes kept before
+    the round, then resolved by the fixpoint of chunk_walk over the in-chunk
+    rows; at most max_output keeps, even inside a round."""
+    def side(a, b, lo, hi):
+        return torch.clamp(torch.minimum(a[..., hi], b[..., hi])
+                           - torch.maximum(a[..., lo], b[..., lo]), min=0)
+
+    def area(x):
+        return torch.clamp(x[..., 2] - x[..., 0], min=0) * torch.clamp(x[..., 3] - x[..., 1], min=0)
+
+    def iou_above(a, b):  # tpurpn.boxes.generate_iou_map, op for op
+        inter = side(a, b, 0, 2) * side(a, b, 1, 3)
+        return inter / torch.clamp(area(a) + area(b) - inter, min=1e-8) > thr
+
+    order = proposal.top_candidates(scores, pre)
+    out_b = torch.zeros((scores.shape[0], max_output, 4))
+    out_s = torch.zeros((scores.shape[0], max_output))
+    counts = []
+    for img in range(scores.shape[0]):
+        kept = []
+        for c0 in range(0, pre, chunk):
+            if len(kept) == max_output:
+                break
+            idx = order[img, c0 : c0 + chunk]
+            cb, cs = boxes[img, idx], scores[img, idx]
+            alive = cs > -float("inf")
+            if kept:
+                kb = boxes[img, torch.stack(kept)]
+                alive &= ~iou_above(cb[:, None], kb[None]).any(1)
+            rows = iou_above(cb[:, None], cb[None]) & torch.ones(len(idx), len(idx)).tril(-1).bool()
+            keep = alive.clone()
+            while True:  # the unique fixpoint: bit i depends on bits below i
+                nxt = alive & ~(rows & keep[None]).any(1)
+                if torch.equal(nxt, keep):
+                    break
+                keep = nxt
+            for i in torch.nonzero(keep).flatten()[: max_output - len(kept)]:
+                kept.append(idx[i])
+        n = len(kept)
+        counts.append(n)
+        if n:
+            out_b[img, :n] = boxes[img, torch.stack(kept)]
+            out_s[img, :n] = scores[img, torch.stack(kept)]
+    return {"roi_boxes": out_b, "roi_scores": out_s,
+            "num_valid": torch.tensor(counts, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("name", ["random", "duplicates", "score_ties", "pre_smaller_than_n",
+                                  "fewer_than_topn", "dense_keep_all", "all_neg_inf_image"])
+def test_chunked_selection_matches_plain(rng, name):
+    if name == "dense_keep_all":  # disjoint boxes: the 300th keep lands inside a chunk
+        i = np.arange(2000, dtype=np.float32)
+        yx = np.stack([i // 50, i % 50], -1) * 0.02
+        boxes = np.tile(np.concatenate([yx, yx + 0.01], -1)[None], (2, 1, 1))
+        scores, topn, pre = rng.uniform(0, 1, (2, 2000)).astype(np.float32), 300, 1037
+    elif name == "all_neg_inf_image":
+        boxes, scores = _random_candidates(rng, 2, 700)
+        scores[0] = -np.inf
+        topn, pre = 50, 700
+    else:
+        boxes, scores, topn, pre = _case(name, rng)
+        pre = min(pre, boxes.shape[1])
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = _chunked_selection(boxes, scores, pre, 0.7, topn)
+    ref = proposal.fused_proposals_plain(boxes, scores, pre, 0.7, topn)
+    for key in ref:
+        assert torch.equal(got[key], ref[key]), key
+
+
 def test_top_candidates_break_ties_to_the_lower_index():
     scores = torch.zeros((1, 40))
     scores[0, 7] = 1.0
@@ -174,8 +368,17 @@ def _meta(shape, dtype=torch.float32):
 HP_VGG = tpurpn_torch.get_hyper_params("vgg16")
 
 
-@pytest.mark.parametrize("kernel", ["ir_stage", "proposals", "targets", "iou_matching", "nms"])
+@pytest.mark.parametrize("kernel", ["ir_stage", "proposals", "proposal_select", "targets",
+                                    "iou_matching", "nms"])
 def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
+    if kernel == "proposal_select":
+        fn = proposal.fused_proposals  # _select counts its launches here
+        launches = fn.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            proposal._select(_meta((2, 500, 4)), _meta((2, 500)), _meta((2, 400), torch.int64),
+                             0.7, 50)
+        assert fn.launches == launches
+        return
     if kernel == "ir_stage":
         weights, blocks = _meta_stage()
         fn = ir_stage.fused_ir_stage
@@ -202,7 +405,8 @@ def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
 def test_wrappers_reject_inputs_their_kernels_do_not_take(no_nvcc):
     weights, blocks = _meta_stage()
     for x in (_meta((2, 32, 32, 64)), _meta((2, 32, 32, 96), torch.bfloat16),
-              _meta((2, 32, 16, 64), torch.bfloat16)):
+              _meta((2, 32, 16, 64), torch.bfloat16),
+              _meta((2, 40, 40, 64), torch.bfloat16)):  # a row of more than 32 pixels
         with pytest.raises(ValueError):
             ir_stage.fused_ir_stage(x, weights, blocks)
     for boxes, scores, pre in (

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from .kernels.ir_stage import fused_ir_stage, pack_stage_weights
+from .kernels.ir_stage import fused_ir_stage, stage_weights_cached
 from .model import RPN, apply_rpn_head
 
 _FUSED_BLOCKS = ("block_7", "block_8", "block_9", "block_10", "block_11",
@@ -28,10 +28,11 @@ def _fused_stage_from(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Images -> logits through the prefix (to block_6), the fused stage
     and the head: the stage boundary (block_6/7 split, block_13_expand tail)
-    lives here only."""
+    lives here only. The stage's weights are packed once and reused until a
+    parameter changes (``stage_weights_cached``)."""
     bb = model.backbone
     feat6 = bb(x, stop_after_block=6)
-    weights, blocks = pack_stage_weights(bb, _FUSED_BLOCKS, tail_expand="block_13_expand")
+    weights, blocks = stage_weights_cached(bb, _FUSED_BLOCKS, tail_expand="block_13_expand")
     feat = fused_ir_stage(feat6.to(torch.bfloat16).contiguous(), weights, blocks)
     return apply_rpn_head(model, feat)
 

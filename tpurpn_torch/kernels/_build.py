@@ -39,8 +39,8 @@ SIGNATURES = {
         "proposal_select": (P, P, P, P, P, P, I, I, I, I, F, P),
     },
     "ir_stage": {
-        "ir_block": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-        "ir_expand": (P, P, P, P, I, I, I, I, P),
+        "ir_block": (P, P, P, I, I, P, P, P, P, I, I, I, I, I, P),
+        "ir_expand": (P, P, P, I, I, P, I, I, I, I, P),
     },
     "targets": {
         "iou_matching": (P, P, P, P, P, I, I, I, P),

@@ -32,3 +32,38 @@ __device__ __forceinline__ float box_iou(float4 a, float area_a, float4 b, float
   const float inter = ih * iw;
   return inter / fmaxf(area_a + area_b - inter, 1e-8f);
 }
+
+// box_iou(a, b) > thr, without the division where the boxes do not overlap:
+// there the intersection is +-0 and box_iou returns +-0 exactly (its
+// denominator is at least 1e-8), so the answer is 0 > thr, bit for bit the
+// same decision.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b,
+                                          float thr) {
+  const float ih = fmaxf(fminf(a.z, b.z) - fmaxf(a.x, b.x), 0.0f);
+  const float iw = fmaxf(fminf(a.w, b.w) - fmaxf(a.y, b.y), 0.0f);
+  if (ih * iw == 0.0f) return 0.0f > thr;
+  return box_iou(a, area_a, b, area_b) > thr;
+}
+
+// Greedy NMS over one chunk of up to 32 candidates in score order, resolved
+// by one warp (all 32 lanes call it with the same `alive` and `room`).
+// alive: bit i set when candidate i is a candidate and no box kept before the
+// chunk suppresses it. row (lane i's value): bit j < i set when candidate j,
+// if kept, suppresses candidate i. Candidate i is kept when alive and no
+// candidate kept earlier in the chunk suppresses it. That keep set is the
+// unique fixpoint of keep_i = alive_i && !(row_i & keep) (bit i depends on
+// bits below i only), reached from keep = alive in one ballot per step of
+// the longest suppression chain in the chunk (at most 32 steps); then only
+// the first `room` keeps stay. Returns the kept mask.
+__device__ __forceinline__ uint32_t chunk_walk(uint32_t alive, uint32_t row, int room) {
+  uint32_t lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  const bool mine = (alive >> lane) & 1u;
+  uint32_t keep = alive, prev;
+  do {
+    prev = keep;
+    keep = __ballot_sync(0xffffffffu, mine && !(row & keep));
+  } while (keep != prev);
+  while (__popc(keep) > room) keep ^= 1u << (31 - __clz(keep));  // drop the last keeps
+  return keep;
+}

@@ -15,298 +15,537 @@
 // IoU), so the depthwise's multiply-accumulates are explicit __fmaf_rn.
 //
 // What bounds it: at B=128 the stage is 127 GFLOP of 1x1 products (0.129 ms
-// at 989 TFLOP/s bf16) plus 6.3 GFLOP of f32 depthwise taps (0.095 ms at
+// at 989 TFLOP/s bf16) and 6.3 GFLOP of f32 depthwise taps (0.095 ms at
 // 67 TFLOP/s), against about 168 MB of activation traffic (0.05 ms at
-// 3.35 TB/s): operations. The 1x1 products run on the tensor cores as
-// mma.sync m16n8k16 bf16 -> f32 (wgmma is later work); the depthwise runs as
-// scalar f32 FMAs.
+// 3.35 TB/s). The tensor cores and the f32 units run at the same time, so
+// the bound is the larger: the tensor cores' operations, 0.129 ms.
 //
-// Design: the TPU kernel keeps a whole 32x32 image in VMEM. A Hopper block
-// has 227 KB of shared memory, so a thread block takes R=4 output rows of one
-// image, loads R+2 input rows (a 1-row halo for the depthwise, recomputing
-// the halo's expand) and walks the expand channels in chunks of 32: expand
-// the chunk over the R+2 rows into shared memory (f32), run the depthwise on
-// it (rounded to bf16), and add the chunk's share of the projection to
-// accumulators held in registers. Chunking is exact: the depthwise is per
-// channel and the projection is an f32 sum over channels. Expanded
-// activations never touch device memory; only the block's input and output
-// do. Operand tiles sit in shared memory as bf16 pairs (32-bit words) with a
-// row stride of 4 words mod 32, so the fragment loads of one warp hit 32
-// different banks. About 90 KB of shared memory: two blocks per SM.
+// Design. A thread block (two warpgroups, 256 threads) takes R = 8 output
+// rows of one image and the 10 input rows around them (the halo's expand is
+// recomputed: 1.25x), laid out as 32 pixels a row whatever S (S <= 32), so
+// 320 halo'd pixels are five 64-row M-tiles and 256 output pixels four. It
+// walks the expanded channels in chunks of CH = 64:
+//
+//   1. expand: wgmma m64n32k16, A = the input rows in shared memory, B = the
+//      chunk's expand weights; warpgroup g computes channels [32g, 32g + 32)
+//      of the chunk at all 320 pixels; + bias, ReLU6, zero outside the image
+//      (SAME padding) -> an f32 tile in shared memory;
+//   2. depthwise from registers: a thread owns one channel and a strip of 8
+//      columns and walks down the 8 rows with the 3x3 window in registers
+//      (10 shared loads per 8 outputs, no division); f32 __fmaf_rn; the bf16
+//      result goes straight into the swizzled A operand of the projection;
+//   3. project: wgmma m64n{C_OUT}k16, A = that tile, B = the chunk's project
+//      weights; warpgroup g owns output M-tiles 2g and 2g + 1, and its
+//      accumulators stay in registers across every chunk.
+//
+// Chunking is exact: the depthwise is per channel and the projection an f32
+// sum over channels. Expanded activations never touch device memory. Two
+// barriers a chunk. The expand starts tile mt + 1 before it stores tile mt,
+// and the projection stays in flight across the next chunk's expand (its
+// first wgmma wait retires it).
+//
+// Weights: the wrapper packs each block once (cached) into per-chunk
+// images of exactly the shared-memory layout below, [expand weights of the
+// chunk | project weights of the chunk], contiguous. The entries take the
+// pack's element count and chunk width and refuse a pack of another layout. One thread copies a
+// chunk with one cp.async.bulk (no tensor map, so no libcuda) into a ring
+// of two stages under mbarriers: chunk c + 1 streams in while chunk c
+// computes. A chunk is 16-24 KB, a multiple of 16 bytes, 16-byte aligned.
+//
+// Operand layouts: every wgmma operand is K-major bf16 with the 64-byte
+// swizzle. C_IN = 96 is 192 bytes a row, not a multiple of the 128-byte
+// atom, so K is split in planes of 32 channels (64-byte rows): a (rows, K)
+// matrix is K/32 planes of (rows, 32), each 512-byte aligned, the 16-byte
+// chunk q of row r stored at q ^ ((r >> 1) & 3). A K=16 step is plane
+// k / 32 at byte offset 32 * (k / 16 % 2); 8-row groups are 512 bytes apart
+// (SBO). The f32 expand tile uses an XOR of the pixel's low bits on the
+// channel so that the accumulator stores and the depthwise loads are nearly
+// free of bank conflicts. Generic-proxy stores that wgmma reads (input
+// rows, depthwise output) are followed by fence.proxy.async before the
+// barrier.
+//
+// Shared memory at R = 8, CH = 64 (the 96 -> 96 block, the largest):
+//   input rows   10 x 32 x 96 bf16  61,440 B
+//   expand tile  320 x 64 f32       81,920 B
+//   dw output    256 x 64 bf16      32,768 B
+//   2 stages     2 x 24,576 B       49,152 B
+//   = 225,280 B + 1,024 B alignment slack + barriers, of 232,448 B: one
+//   block per SM. 64 -> 64 takes 185,344 B and 64 -> 96 193,536 B.
+// Outputs are staged in shared memory (in the free expand tile, or a
+// 32 KB tile in the tail) and written 16 bytes a thread along each pixel.
+// The expand-only tail: 8 rows (256 pixels) of 96 channels (49,152 B), two
+// stages of 64 output channels (2 x 12,288 B) and the 32,768 B output tile,
+// 108 KB: two blocks per SM; its output is 151 MB at B = 128.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int R = 4;           // output rows per thread block
-constexpr int CH = 32;         // expand channels per chunk
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxS = 32;      // spatial size limit (the 32x32 stage)
-constexpr int P1_MAX = (R + 2) * kMaxS;  // halo'd pixels: 12 m-tiles of 16
-constexpr int P_MAX = R * kMaxS;         // output pixels: 8 m-tiles, one a warp
-constexpr int HS = CH + 1;     // row stride of the f32 expanded chunk, floats
-constexpr int HW = CH / 2 + 4; // row stride of bf16-pair tiles with CH columns, words
-constexpr int NC = 64;         // output channels per chunk of the expand-only tail
-static_assert(P_MAX == 16 * kWarps, "the projection gives one m-tile to each warp");
+constexpr int R = 8;                 // output rows per thread block
+constexpr int kCols = 32;            // pixels a row in shared memory (S <= 32)
+constexpr int P1 = (R + 2) * kCols;  // halo'd pixels: 5 M-tiles of 64
+constexpr int P = R * kCols;         // output pixels: 4 M-tiles
+constexpr int CH = 64;               // expand channels per chunk
+constexpr int NC = 64;               // output channels per chunk of the tail
+constexpr int kThreads = 256;        // two warpgroups
+constexpr int kStages = 2;           // weight ring
+constexpr int kAlign = 1024;         // slack to align the dynamic shared memory
 
 __device__ __forceinline__ float relu6f(float v) { return fminf(fmaxf(v, 0.0f), 6.0f); }
 
-__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return pack2(__bfloat16_as_ushort(f32_to_bf16(lo)), __bfloat16_as_ushort(f32_to_bf16(hi)));
+  return (uint32_t)__bfloat16_as_ushort(f32_to_bf16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(f32_to_bf16(hi)) << 16);
 }
 
-// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (row, k) of a K-major bf16 matrix of `rows` rows
+// in 64-byte-swizzled planes of 32 channels.
+__device__ __forceinline__ int sw64(int rows, int row, int k) {
+  return (k >> 5) * rows * 64 + row * 64 + ((((k >> 3) & 3) ^ ((row >> 1) & 3)) << 4) +
+         ((k & 7) << 1);
+}
+
+// wgmma shared-memory descriptor of a K-major 64-byte-swizzled operand at
+// shared address `addr`: LBO 1 (unused for swizzled K-major), SBO 512 bytes
+// (one 8-row group), layout type 2 (64-byte swizzle).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin accumulator registers in place around asynchronous wgmma work.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// A fragment of rows [row0, row0 + 16), k-words [kw, kw + 8) of a word tile
-// with row stride `stride` (row = pixel, k = channel pairs).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* tile, int stride,
-                                       int row0, int kw, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  a[0] = tile[(row0 + g) * stride + kw + q];
-  a[1] = tile[(row0 + g + 8) * stride + kw + q];
-  a[2] = tile[(row0 + g) * stride + kw + 4 + q];
-  a[3] = tile[(row0 + g + 8) * stride + kw + 4 + q];
+// d (64 x N f32, N = 2 x the accumulator count) += A (64 x 16) * B (16 x N),
+// both bf16 from shared memory through descriptors a and b; the fragment of
+// thread t of the warpgroup: d[4j + 2h + e] is row 16 (t / 32) + (t % 32) / 4
+// + 8h, column 8j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// B fragment of columns [n0, n0 + 8), k-words [kw, kw + 8) of a transposed
-// word tile (row = output channel, k = channel pairs).
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint32_t* tile, int stride,
-                                       int n0, int kw, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  b[0] = tile[(n0 + g) * stride + kw + q];
-  b[1] = tile[(n0 + g) * stride + kw + 4 + q];
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
 }
 
 // Load image rows [first_row, first_row + rows) of x (S x S x C_IN bf16,
-// NHWC) into xs as bf16 pairs, `xw` words a pixel; rows outside are zero.
+// NHWC) into xs (rows * 32 pixels, swizzled planes), 16 bytes at a time;
+// pixels outside the image are zero. Fenced for wgmma; the caller syncs.
 template <int C_IN>
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ xb, uint32_t* xs,
-                                          int xw, int first_row, int rows, int S) {
-  constexpr int W = C_IN / 2;
-  for (int i = threadIdx.x; i < rows * S * W; i += kThreads) {
-    const int p = i / W, w = i % W;
-    const int row = first_row + p / S, col = p % S;
-    uint32_t v = 0;
-    if (row >= 0 && row < S)
-      v = reinterpret_cast<const uint32_t*>(xb + ((size_t)row * S + col) * C_IN)[w];
-    xs[p * xw + w] = v;
+__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ xb, unsigned char* xs,
+                                          int first_row, int rows, int S) {
+  constexpr int Q = C_IN / 8;  // 16-byte pieces a pixel
+  const int np = rows * kCols;
+  for (int i = threadIdx.x; i < np * Q; i += kThreads) {
+    const int p = i / Q, q = i % Q;
+    const int row = first_row + p / kCols, col = p % kCols;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row >= 0 && row < S && col < S)
+      v = *reinterpret_cast<const uint4*>(xb + ((size_t)row * S + col) * C_IN + 8 * q);
+    *reinterpret_cast<uint4*>(xs + sw64(np, p, 8 * q)) = v;
   }
+  fence_proxy_async();
 }
 
-// Columns [c0, c0 + n) of a (K, ld) bf16 row-major matrix, transposed into
-// t[col][k-pair] bf16-pair words with row stride `stride`.
-__device__ __forceinline__ void load_bt(uint32_t* t, int stride, const __nv_bfloat16* m,
-                                        int ld, int c0, int n, int K) {
-  const uint16_t* mu = reinterpret_cast<const uint16_t*>(m);
-  for (int i = threadIdx.x; i < n * (K / 2); i += kThreads) {
-    const int c = i % n, kp = i / n;
-    t[c * stride + kp] = pack2(mu[(size_t)(2 * kp) * ld + c0 + c],
-                               mu[(size_t)(2 * kp + 1) * ld + c0 + c]);
+// Start (and commit) warpgroup wg's expand of M-tile mt: channels
+// [32wg, 32wg + 32) of the chunk in stage we_s at halo'd pixels
+// [64mt, 64mt + 64), into zeroed accumulators.
+template <int C_IN>
+__device__ __forceinline__ void expand_tile(float (&acc)[16], const unsigned char* xs,
+                                            const unsigned char* we_s, int mt, int wg) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < C_IN / 16; ++ks) {
+    const int koff = (ks & 1) * 32;
+    wgmma_bf16(acc, desc_sw64(smem_u32(xs + (ks >> 1) * P1 * 64 + mt * 64 * 64 + koff)),
+               desc_sw64(smem_u32(we_s + (ks >> 1) * CH * 64 + 32 * wg * 64 + koff)));
+  }
+  wgmma_commit();
+}
+
+// The output tile of a thread block, staged in shared memory for coalesced
+// 16-byte stores: RSW 32-bit words a pixel, word w of pixel p at
+// w ^ ((p & 7) << 2) (accumulator-fragment stores free of bank conflicts).
+template <int RSW>
+__device__ __forceinline__ void stage_word(uint32_t* ot, int p, int w, uint32_t v) {
+  ot[p * RSW + (w ^ ((p & 7) << 2))] = v;
+}
+
+// Copy the staged tile out, 16 bytes a thread, consecutive threads along a
+// pixel: pixel p (image row r0 + p / 32, column p % 32) goes to bf16
+// channels [c0, c0 + 8 * PIECES) of its row of `ld` channels in img.
+template <int RSW, int PIECES>
+__device__ __forceinline__ void store_tile(const uint32_t* ot, __nv_bfloat16* img, int ld, int c0,
+                                           int r0, int S) {
+  for (int i = threadIdx.x; i < P * PIECES; i += kThreads) {
+    const int p = i / PIECES, k = i % PIECES;
+    const int row = r0 + p / kCols, col = p % kCols;
+    if (row < S && col < S)
+      *reinterpret_cast<uint4*>(img + ((size_t)row * S + col) * ld + c0 + 8 * k) =
+          reinterpret_cast<const uint4*>(ot)[p * (RSW / 4) + (k ^ (p & 7))];
   }
 }
 
 template <int C_IN, int C_OUT>
 constexpr size_t block_smem_bytes() {
-  return 4 * ((size_t)P1_MAX * (C_IN / 2 + 4) + P1_MAX * HS + P_MAX * HW +
-              CH * (C_IN / 2 + 4) + C_OUT * HW);
+  return (size_t)P1 * C_IN * 2 + (size_t)P1 * CH * 4 + (size_t)P * CH * 2 +
+         (size_t)kStages * (CH * C_IN + C_OUT * CH) * 2 + kStages * 8 + kAlign;
 }
 
 template <int C_IN, int C_OUT, bool RESIDUAL>
-__global__ void __launch_bounds__(kThreads, 2) ir_block_kernel(
+__global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ we, const float* __restrict__ be,
-    const float* __restrict__ kdw, const float* __restrict__ bdw,
-    const __nv_bfloat16* __restrict__ wp, const float* __restrict__ bp, int S) {
+    const unsigned char* __restrict__ pack, const float* __restrict__ be,
+    const float* __restrict__ kdw, const float* __restrict__ bdw, const float* __restrict__ bp,
+    int S) {
   constexpr int C_EXP = 6 * C_IN;
-  constexpr int XW = C_IN / 2 + 4;  // words a pixel of xs, and a row of wes
-  constexpr int NT = C_OUT / 8;     // n-tiles of the projection
+  constexpr int NCHUNK = C_EXP / CH;
+  constexpr int WE_BYTES = CH * C_IN * 2;                 // expand weights of a chunk
+  constexpr int CHUNK_BYTES = WE_BYTES + C_OUT * CH * 2;  // + project weights
+  constexpr int NH = C_OUT / 2;                           // accumulators of one M-tile
+  static_assert(NCHUNK >= kStages, "the ring is filled before the loop");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* xs = reinterpret_cast<uint32_t*>(smem_raw);  // [P1_MAX][XW] input rows
-  float* hs = reinterpret_cast<float*>(xs + P1_MAX * XW);  // [P1_MAX][HS] expanded chunk
-  uint32_t* h2 = reinterpret_cast<uint32_t*>(hs + P1_MAX * HS);  // [P_MAX][HW] dw out
-  uint32_t* wes = h2 + P_MAX * HW;  // [CH][XW] expand weights of the chunk, transposed
-  uint32_t* wps = wes + CH * XW;    // [C_OUT][HW] project weights of the chunk, transposed
+  unsigned char* xs = align_smem(smem_raw);                        // [P1][C_IN] planes
+  // [P1][CH] f32; (pixel p, channel c) at p * CH + (c ^ ((p & 7) << 2))
+  float* hs = reinterpret_cast<float*>(xs + P1 * C_IN * 2);
+  unsigned char* h2 = reinterpret_cast<unsigned char*>(hs + P1 * CH);  // [P][CH] planes
+  unsigned char* stage = h2 + P * CH * 2;                          // kStages x chunk
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kStages * CHUNK_BYTES);
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, q = lane & 3;
+  const int wg = t >> 7, wi = warp & 3;  // warpgroup, warp within it
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * R;
-  const int P1 = (R + 2) * S;  // halo'd pixels
-  const int P = R * S;         // this block's output pixels (rows past S masked)
 
-  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, XW, r0 - 1, R + 2, S);
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages; ++s)
+      bulk_load(stage + s * CHUNK_BYTES, pack + (size_t)s * CHUNK_BYTES, CHUNK_BYTES, &full[s]);
+  }
+  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, r0 - 1, R + 2, S);
+  __syncthreads();
 
-  float yacc[NT][4];
+  float y0[NH], y1[NH];  // projection of M-tiles 2wg and 2wg + 1
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) yacc[n][e] = 0.0f;
+  for (int i = 0; i < NH; ++i) y0[i] = y1[i] = 0.0f;
 
-  for (int c0 = 0; c0 < C_EXP; c0 += CH) {
-    __syncthreads();  // xs is loaded; the previous chunk's buffers are free
-    load_bt(wes, XW, we, C_EXP, c0, CH, C_IN);
-    load_bt(wps, HW, wp + (size_t)c0 * C_OUT, C_OUT, 0, C_OUT, CH);
-    __syncthreads();
+  // the depthwise thread's channel and strip of columns
+  const int dc = 32 * (warp & 1) + lane, col0 = 8 * (warp >> 1);
 
-    // 1. expand the chunk over the halo'd rows: 12 m-tiles x 4 n-tiles,
-    //    six (m, n) tiles a warp; then bias, ReLU6, SAME zero rows -> hs
-    for (int j = warp; j < (P1_MAX / 16) * (CH / 8); j += kWarps) {
-      const int m = j / (CH / 8), nt = j % (CH / 8);
-      if (16 * m >= P1) continue;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c = 0; c < NCHUNK; ++c) {
+    const int s = c % kStages;
+    const int c0 = c * CH;
+    unsigned char* we_s = stage + s * CHUNK_BYTES;
+    unsigned char* wp_s = we_s + WE_BYTES;
+    mbar_wait(&full[s], (c / kStages) & 1);
+
+    // 1. expand: channels [32wg, 32wg + 32) of the chunk at every halo'd pixel.
+    //    Thread (wi, lane) holds pixels 64mt + 16wi + g + 8h (g = lane / 4):
+    //    image row r0 - 1 + 2mt + wi / 2, column 16 (wi % 2) + g + 8h, and
+    //    channels 32wg + 8j + 2 (lane % 4) + e, stored at channel ^ 4g.
+    float bias[8];
+    int chs[8];
 #pragma unroll
-      for (int kw = 0; kw < C_IN / 2; kw += 8) {
-        uint32_t a[4], bb[2];
-        load_a(a, xs, XW, 16 * m, kw, lane);
-        load_b(bb, wes, XW, 8 * nt, kw, lane);
-        mma_bf16(acc, a, bb);
+    for (int v = 0; v < 8; ++v) {
+      const int ch = 32 * wg + 8 * (v >> 1) + 2 * (lane & 3) + (v & 1);
+      bias[v] = be[c0 + ch];
+      chs[v] = ch ^ ((lane >> 2) << 2);
+    }
+    // Tile mt + 1 is started before tile mt is stored (two accumulator sets),
+    // and the first wait also retires the previous chunk's projection.
+    float acc[2][16];
+    expand_tile<C_IN>(acc[0], xs, we_s, 0, wg);
+#pragma unroll
+    for (int mt = 0; mt < P1 / 64; ++mt) {
+      if (mt + 1 < P1 / 64) {
+        expand_tile<C_IN>(acc[(mt + 1) & 1], xs, we_s, mt + 1, wg);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
       }
+      fence_regs(acc[mt & 1]);
+      const int row = r0 - 1 + 2 * mt + (wi >> 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = 16 * m + g + 8 * h;
-        if (p >= P1) continue;
-        const int row = r0 - 1 + p / S;
-        const bool inside = row >= 0 && row < S;  // SAME zero padding of h
-        const int c = 8 * nt + 2 * q;
-        hs[p * HS + c] = inside ? relu6f(acc[2 * h] + be[c0 + c]) : 0.0f;
-        hs[p * HS + c + 1] = inside ? relu6f(acc[2 * h + 1] + be[c0 + c + 1]) : 0.0f;
+        const int col = 16 * (wi & 1) + (lane >> 2) + 8 * h;
+        const bool inside = row >= 0 && row < S && col < S;  // SAME zero padding of h
+        float* hp = hs + (64 * mt + 16 * wi + (lane >> 2) + 8 * h) * CH;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            hp[chs[2 * j + e]] =
+                inside ? relu6f(acc[mt & 1][4 * j + 2 * h + e] + bias[2 * j + e]) : 0.0f;
       }
     }
-    __syncthreads();
+    __syncthreads();  // hs holds the chunk; every warpgroup is done with chunk c - 1
 
-    // 2. 3x3 depthwise (stride 1, SAME) + bias + ReLU6, rounded to bf16
+    // stage (c + 1) % kStages held chunk c - 1, whose projection is finished
+    if (t == 0 && c + 1 >= kStages && c + 1 < NCHUNK)
+      bulk_load(stage + ((c + 1) % kStages) * CHUNK_BYTES, pack + (size_t)(c + 1) * CHUNK_BYTES,
+                CHUNK_BYTES, &full[(c + 1) % kStages]);
+
+    // 2. 3x3 depthwise (stride 1, SAME) + bias + ReLU6 -> bf16 into h2. The
+    //    strip's pixel columns col0 - 1 + i have i - 1 as their low 3 bits,
+    //    so every swizzle below is known at compile time but for dc.
     {
-      const int c = lane;
       float tap[9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) tap[k] = kdw[k * C_EXP + c0 + c];
-      const float bias = bdw[c0 + c];
-      __nv_bfloat16* h2b = reinterpret_cast<__nv_bfloat16*>(h2);
-      for (int p = warp; p < P; p += kWarps) {
-        const int r = p / S, col = p % S;
-        float acc = 0.0f;
+      for (int k = 0; k < 9; ++k) tap[k] = kdw[k * C_EXP + c0 + dc];
+      const float bias = bdw[c0 + dc];
+      const int hs0 = col0 * CH;  // pixel col0 of row 0 in the expand tile
+      unsigned char* h2t = h2 + (dc >> 5) * P * 64 + col0 * 64 + ((dc & 7) << 1);
+      const int q = (dc >> 3) & 3;  // dc's 16-byte piece in its plane row
+      float win[3][10];
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+      for (int r = 0; r < R + 2; ++r) {
+        float(&w)[10] = win[r % 3];
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const int cc = col + dx - 1;
-            if (cc >= 0 && cc < S)
-              acc = __fmaf_rn(hs[((r + dy) * S + cc) * HS + c], tap[dy * 3 + dx], acc);
-          }
-        h2b[p * 2 * HW + c] = f32_to_bf16(relu6f(acc + bias));
+        for (int i = 0; i < 10; ++i) {
+          const bool in = (i > 0 || col0 > 0) && (i < 9 || col0 < kCols - 8);  // SAME columns
+          w[i] = in ? hs[hs0 + (r * kCols + i - 1) * CH + (dc ^ (((i + 7) & 7) << 2))] : 0.0f;
+        }
+        if (r < 2) continue;
+        const int orow = r - 2;  // output row of the tile
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+              acc = __fmaf_rn(win[(orow + dy) % 3][i + dx], tap[dy * 3 + dx], acc);
+          // = h2 + sw64(P, orow * kCols + col0 + i, dc)
+          *reinterpret_cast<__nv_bfloat16*>(h2t + (orow * kCols + i) * 64 +
+                                            ((q ^ ((i >> 1) & 3)) << 4)) =
+              f32_to_bf16(relu6f(acc + bias));
+        }
       }
     }
-    __syncthreads();
+    fence_proxy_async();
+    __syncthreads();  // h2 holds the chunk's depthwise output
 
-    // 3. this chunk's share of the 1x1 projection: warp w owns pixels
-    //    [16w, 16w + 16) and every output channel
+    // 3. this chunk's share of the projection, M-tiles 2wg and 2wg + 1
+    fence_regs(y0);
+    fence_regs(y1);
+    wgmma_fence();
 #pragma unroll
-    for (int kw = 0; kw < CH / 2; kw += 8) {
-      uint32_t a[4];
-      load_a(a, h2, HW, 16 * warp, kw, lane);
+    for (int ks = 0; ks < CH / 16; ++ks) {
+      const int koff = (ks & 1) * 32;
+      const uint64_t db = desc_sw64(smem_u32(wp_s + (ks >> 1) * C_OUT * 64 + koff));
+      const unsigned char* a = h2 + (ks >> 1) * P * 64 + (2 * wg) * 64 * 64 + koff;
+      wgmma_bf16(y0, desc_sw64(smem_u32(a)), db);
+      wgmma_bf16(y1, desc_sw64(smem_u32(a + 64 * 64)), db);
+    }
+    wgmma_commit();  // retired by the next chunk's first wait, or below
+  }
+  wgmma_wait<0>();
+  fence_regs(y0);
+  fence_regs(y1);
+
+  // epilogue: + bias -> bf16 (-> + residual in bf16), staged in hs (free
+  // since the last depthwise) as channel pairs, then stored coalesced
+  uint32_t* ot = reinterpret_cast<uint32_t*>(hs);  // [P][64] words
+  static_assert(P * 64 * 4 <= P1 * CH * 4 && C_OUT <= 128, "the output tile fits in hs");
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t bb[2];
-        load_b(bb, wps, HW, 8 * n, kw, lane);
-        mma_bf16(yacc[n], a, bb);
+  for (int m = 0; m < 2; ++m) {
+    float(&y)[NH] = m ? y1 : y0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 64 * (2 * wg + m) + 16 * wi + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NH / 4; ++j) {
+        const int ch = 8 * j + 2 * (lane & 3);
+        float v0 = round_bf16(y[4 * j + 2 * h] + bp[ch]);
+        float v1 = round_bf16(y[4 * j + 2 * h + 1] + bp[ch + 1]);
+        if (RESIDUAL) {
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(xs + sw64(P1, p + kCols, ch));
+          v0 = bf16_lo(v) + v0;
+          v1 = bf16_hi(v) + v1;
+        }
+        stage_word<64>(ot, p, ch / 2, pack_bf16(v0, v1));
       }
     }
   }
-
-  // epilogue: + bias -> bf16 (-> + residual in bf16) -> out, channel pairs
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = 16 * warp + g + 8 * h;
-    const int row = r0 + p / S, col = p % S;
-    if (p >= P || row >= S) continue;
-    uint32_t* o = reinterpret_cast<uint32_t*>(out + (((size_t)b * S + row) * S + col) * C_OUT);
-    const uint32_t* xr = xs + ((p / S + 1) * S + col) * XW;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int c = 8 * n + 2 * q;
-      float y0 = round_bf16(yacc[n][2 * h] + bp[c]);
-      float y1 = round_bf16(yacc[n][2 * h + 1] + bp[c + 1]);
-      if (RESIDUAL) {
-        const uint32_t v = xr[c / 2];
-        y0 = bf16_lo(v) + y0;
-        y1 = bf16_hi(v) + y1;
-      }
-      o[c / 2] = pack_bf16(y0, y1);
-    }
-  }
+  __syncthreads();
+  store_tile<64, C_OUT / 8>(ot, out + (size_t)b * S * S * C_OUT, C_OUT, 0, r0, S);
 }
 
 // The expand-only tail (block_13_expand): out = bf16(ReLU6(x @ we + be)),
-// R rows of one image a block, NC output channels at a time.
+// R rows of one image a block, NC output channels a chunk; warpgroup g owns
+// M-tiles 2g and 2g + 1.
 template <int C_IN>
-__global__ void __launch_bounds__(kThreads) ir_expand_kernel(
+__global__ void __launch_bounds__(kThreads, 2) ir_expand_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ we, const float* __restrict__ be, int S,
-    int C_EXP) {
-  constexpr int XW = C_IN / 2 + 4;
+    const unsigned char* __restrict__ pack, const float* __restrict__ be, int S, int C_EXP) {
+  constexpr int CHUNK_BYTES = NC * C_IN * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* xs = reinterpret_cast<uint32_t*>(smem_raw);  // [P_MAX][XW]
-  uint32_t* wt = xs + P_MAX * XW;                        // [NC][XW]
+  unsigned char* xs = align_smem(smem_raw);  // [P][C_IN] planes
+  unsigned char* stage = xs + P * C_IN * 2;
+  uint32_t* ot = reinterpret_cast<uint32_t*>(stage + kStages * CHUNK_BYTES);  // [P][NC / 2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ot + P * NC / 2);
 
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, q = lane & 3;
+  const int t = threadIdx.x, lane = t & 31;
+  const int wg = t >> 7, wi = (t >> 5) & 3;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * R;
-  const int P = R * S;
+  const int nchunk = C_EXP / NC;
 
-  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, XW, r0, R, S);
-  for (int c0 = 0; c0 < C_EXP; c0 += NC) {
-    __syncthreads();
-    load_bt(wt, XW, we, C_EXP, c0, NC, C_IN);
-    __syncthreads();
-    float acc[NC / 8][4];
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages && s < nchunk; ++s)
+      bulk_load(stage + s * CHUNK_BYTES, pack + (size_t)s * CHUNK_BYTES, CHUNK_BYTES, &full[s]);
+  }
+  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, r0, R, S);
+  __syncthreads();
+
+  for (int c = 0; c < nchunk; ++c) {
+    const int s = c % kStages;
+    unsigned char* we_s = stage + s * CHUNK_BYTES;
+    mbar_wait(&full[s], (c / kStages) & 1);
+    float acc0[NC / 2], acc1[NC / 2];
 #pragma unroll
-    for (int n = 0; n < NC / 8; ++n)
+    for (int i = 0; i < NC / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+    fence_regs(acc0);
+    fence_regs(acc1);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    for (int ks = 0; ks < C_IN / 16; ++ks) {
+      const int koff = (ks & 1) * 32;
+      const uint64_t db = desc_sw64(smem_u32(we_s + (ks >> 1) * NC * 64 + koff));
+      const unsigned char* a = xs + (ks >> 1) * P * 64 + (2 * wg) * 64 * 64 + koff;
+      wgmma_bf16(acc0, desc_sw64(smem_u32(a)), db);
+      wgmma_bf16(acc1, desc_sw64(smem_u32(a + 64 * 64)), db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+    __syncthreads();  // every warpgroup has read stage s; the last tile is out
+    if (t == 0 && c + kStages < nchunk)
+      bulk_load(we_s, pack + (size_t)(c + kStages) * CHUNK_BYTES, CHUNK_BYTES, &full[s]);
+
 #pragma unroll
-    for (int kw = 0; kw < C_IN / 2; kw += 8) {
-      uint32_t a[4];
-      load_a(a, xs, XW, 16 * warp, kw, lane);
+    for (int m = 0; m < 2; ++m) {
+      float(&a)[NC / 2] = m ? acc1 : acc0;
 #pragma unroll
-      for (int n = 0; n < NC / 8; ++n) {
-        uint32_t bb[2];
-        load_b(bb, wt, XW, 8 * n, kw, lane);
-        mma_bf16(acc[n], a, bb);
+      for (int h = 0; h < 2; ++h) {
+        const int p = 64 * (2 * wg + m) + 16 * wi + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j) {
+          const int ch = c * NC + 8 * j + 2 * (lane & 3);
+          stage_word<NC / 2>(ot, p, (ch - c * NC) / 2,
+                             pack_bf16(relu6f(a[4 * j + 2 * h] + be[ch]),
+                                       relu6f(a[4 * j + 2 * h + 1] + be[ch + 1])));
+        }
       }
     }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = 16 * warp + g + 8 * h;
-      const int row = r0 + p / S, col = p % S;
-      if (p >= P || row >= S) continue;
-      uint32_t* o = reinterpret_cast<uint32_t*>(out + (((size_t)b * S + row) * S + col) * C_EXP);
-#pragma unroll
-      for (int n = 0; n < NC / 8; ++n) {
-        const int c = c0 + 8 * n + 2 * q;
-        o[c / 2] = pack_bf16(relu6f(acc[n][2 * h] + be[c]), relu6f(acc[n][2 * h + 1] + be[c + 1]));
-      }
-    }
+    __syncthreads();
+    store_tile<NC / 2, NC / 8>(ot, out + (size_t)b * S * S * C_EXP, C_EXP, c * NC, r0, S);
   }
 }
 
 template <int C_IN, int C_OUT, bool RESIDUAL>
-cudaError_t launch_block(const __nv_bfloat16* x, __nv_bfloat16* out,
-                         const __nv_bfloat16* we, const float* be, const float* kdw,
-                         const float* bdw, const __nv_bfloat16* wp, const float* bp,
+cudaError_t launch_block(const __nv_bfloat16* x, __nv_bfloat16* out, const unsigned char* pack,
+                         const float* be, const float* kdw, const float* bdw, const float* bp,
                          int B, int S, cudaStream_t stream) {
   auto kernel = ir_block_kernel<C_IN, C_OUT, RESIDUAL>;
   const size_t smem = block_smem_bytes<C_IN, C_OUT>();
@@ -314,47 +553,57 @@ cudaError_t launch_block(const __nv_bfloat16* x, __nv_bfloat16* out,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + R - 1) / R, B);
-  kernel<<<grid, kThreads, smem, stream>>>(x, out, we, be, kdw, bdw, wp, bp, S);
+  kernel<<<grid, kThreads, smem, stream>>>(x, out, pack, be, kdw, bdw, bp, S);
   return cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 // One full inverted-residual block at stride 1: (B, S, S, c_in) bf16 ->
-// (B, S, S, c_out) bf16, expansion 6. Instances: the 64->64 and 96->96
+// (B, S, S, c_out) bf16, expansion 6. `pack` holds the block's per-chunk
+// weight images (kernels/ir_stage.py: kernel_pack), `pack_elems` bf16 in
+// chunks of `chunk` expanded channels. Instances: the 64->64 and 96->96
 // residual blocks and the 64->96 block without residual.
-TPURPN_EXPORT int ir_block(const void* x, void* out, const void* we, const float* be,
-                           const float* kdw, const float* bdw, const void* wp,
-                           const float* bp, int B, int S, int c_in, int c_out,
-                           int residual, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > kMaxS) return cudaErrorInvalidValue;
+TPURPN_EXPORT int ir_block(const void* x, void* out, const void* pack, int pack_elems, int chunk,
+                           const float* be, const float* kdw, const float* bdw, const float* bp,
+                           int B, int S, int c_in, int c_out, int residual,
+                           cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > kCols || chunk != CH || pack_elems != 6 * c_in * (c_in + c_out) ||
+      !aligned16(x) || !aligned16(out) || !aligned16(pack))
+    return cudaErrorInvalidValue;
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto ob = static_cast<__nv_bfloat16*>(out);
-  auto web = static_cast<const __nv_bfloat16*>(we);
-  auto wpb = static_cast<const __nv_bfloat16*>(wp);
+  auto pk = static_cast<const unsigned char*>(pack);
   if (c_in == 64 && c_out == 64 && residual)
-    return launch_block<64, 64, true>(xb, ob, web, be, kdw, bdw, wpb, bp, B, S, stream);
+    return launch_block<64, 64, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
   if (c_in == 64 && c_out == 96 && !residual)
-    return launch_block<64, 96, false>(xb, ob, web, be, kdw, bdw, wpb, bp, B, S, stream);
+    return launch_block<64, 96, false>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
   if (c_in == 96 && c_out == 96 && residual)
-    return launch_block<96, 96, true>(xb, ob, web, be, kdw, bdw, wpb, bp, B, S, stream);
+    return launch_block<96, 96, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
   return cudaErrorInvalidValue;
 }
 
-// The expand-only tail: (B, S, S, 96) bf16 -> (B, S, S, c_exp) bf16.
-TPURPN_EXPORT int ir_expand(const void* x, void* out, const void* we, const float* be,
-                            int B, int S, int c_in, int c_exp, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > kMaxS || c_in != 96 || c_exp % NC != 0)
+// The expand-only tail: (B, S, S, 96) bf16 -> (B, S, S, c_exp) bf16; `pack`
+// is `pack_elems` bf16 in chunks of `chunk` output channels.
+TPURPN_EXPORT int ir_expand(const void* x, void* out, const void* pack, int pack_elems,
+                            int chunk, const float* be, int B, int S, int c_in, int c_exp,
+                            cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > kCols || c_in != 96 || c_exp <= 0 || c_exp % NC != 0 ||
+      chunk != NC || pack_elems != c_in * c_exp || !aligned16(x) || !aligned16(out) ||
+      !aligned16(pack))
     return cudaErrorInvalidValue;
   auto kernel = ir_expand_kernel<96>;
-  const size_t smem = 4 * (size_t)(P_MAX + NC) * (96 / 2 + 4);
+  const size_t smem = (size_t)P * 96 * 2 + kStages * (size_t)NC * 96 * 2 + (size_t)P * NC * 2 +
+                      kStages * 8 + kAlign;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + R - 1) / R, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(we), be, S, c_exp);
+      static_cast<const unsigned char*>(pack), be, S, c_exp);
   return cudaGetLastError();
 }
 

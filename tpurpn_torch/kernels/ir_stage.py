@@ -7,6 +7,11 @@ laid out); on a CPU tensor it runs ``fused_ir_stage_plain``, the same
 function in plain PyTorch. There is no fallback: a CUDA tensor the kernel
 does not take raises.
 
+The kernel copies its weights chunk by chunk as images of its shared
+memory (``kernel_pack``: K-major bf16, 64-byte swizzle), made once per set
+of weight tensors (``kernel_pack_cached``); ``stage_weights_cached`` keeps
+``pack_stage_weights``' output until a conv's weight or bias changes.
+
 Numerics, as ``tpurpn``'s kernel: bf16 1x1-conv operands with f32
 accumulation, bias and ReLU6 in f32, the depthwise in f32 over the f32
 expanded activation, bf16 rounding after the depthwise ReLU6 and after the
@@ -16,6 +21,7 @@ at bf16 tolerance (tests/test_torch_kernels.py).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -105,34 +111,149 @@ def fused_ir_stage_plain(
     return x
 
 
+# Chunk widths of csrc/ir_stage.cu: expand channels a chunk of a full block,
+# output channels a chunk of the expand-only tail. The kernel's entries take
+# the width and the pack's size and refuse a pack made for other constants.
+CH = 64
+TAIL_NC = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sw64_index(rows: int, k: int) -> torch.Tensor:
+    """Destination (in bf16 elements) of each (row, k) of a K-major (rows, k)
+    bf16 matrix in the kernel's layout: k/32 planes of (rows, 32), the 16-byte
+    piece q of row r at q ^ ((r >> 1) & 3) (the wgmma 64-byte swizzle)."""
+    if rows % 8 or k % 32:
+        raise ValueError(f"swizzled operand needs rows % 8 == 0 and k % 32 == 0: {rows=} {k=}")
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(k)[None, :]
+    return ((c // 32) * rows * 32 + r * 32 + (((c % 32) // 8) ^ ((r >> 1) & 3)) * 8
+            + c % 8).reshape(-1)
+
+
+def _swizzle(m: torch.Tensor) -> torch.Tensor:
+    """(n, rows, k) -> (n, rows * k): each matrix in the layout of ``_sw64_index``."""
+    n, rows, k = m.shape
+    out = torch.empty((n, rows * k), dtype=m.dtype, device=m.device)
+    out[:, _sw64_index(rows, k).to(m.device)] = m.reshape(n, -1)
+    return out
+
+
+def _chunk_width(c_exp: int, c_out) -> int:
+    width = TAIL_NC if c_out is None else CH
+    if c_exp % width:
+        raise ValueError(f"c_exp {c_exp} is not a multiple of the chunk width {width}")
+    return width
+
+
+def kernel_pack(
+    weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...]
+) -> Tuple[torch.Tensor, ...]:
+    """``pack_stage_weights``' output -> one flat bf16 tensor a block, in the
+    order and layout the kernel copies into shared memory: for each chunk of
+    w expanded channels, the expand weights (w, c_in) and, for a full block,
+    the project weights (c_out, w), both K-major and swizzled
+    (``_sw64_index``). Each chunk is one contiguous bulk copy."""
+    packs = []
+    wi = 0
+    for c_in, c_exp, c_out, _ in blocks:
+        w = _chunk_width(c_exp, c_out)
+        n = c_exp // w
+        parts = [_swizzle(weights[wi].t().reshape(n, w, c_in))]
+        if c_out is not None:
+            parts.append(_swizzle(weights[wi + 4].reshape(n, w, c_out).transpose(1, 2)))
+        wi += 2 if c_out is None else 6
+        packs.append(torch.cat(parts, 1).reshape(-1))
+    return tuple(packs)
+
+
+class _VersionCache:
+    """Results keyed on the identity, ``_version`` and storage address of
+    their source tensors: an in-place update of a source (``copy_``, an
+    optimizer step) bumps its version, and a new storage (``p.data = t``)
+    moves its address, so neither serves a stale result. A write into a
+    source's ``.data`` in place (``p.data.copy_(t)``) bumps neither and is
+    not seen. Inference tensors keep no version, so results of them are
+    computed afresh on every call; results of other tensors are computed
+    outside inference mode, so that they can key this cache in turn. Holds
+    the sources, so an id is never reused while its entry lives; keeps the
+    newest SIZE."""
+
+    SIZE = 4
+
+    def __init__(self):
+        self.entries: list = []  # (sources, key, value), newest last
+
+    def get(self, sources: Sequence[torch.Tensor], make):
+        if any(t.is_inference() for t in sources):
+            return make()
+        key = tuple((t._version, t.data_ptr()) for t in sources)
+        for i, (src, k, value) in enumerate(self.entries):
+            if k == key and len(src) == len(sources) and all(
+                    a is b for a, b in zip(src, sources)):
+                self.entries.append(self.entries.pop(i))
+                return value
+        with torch.inference_mode(False):
+            value = make()
+        self.entries = (self.entries + [(tuple(sources), key, value)])[-self.SIZE:]
+        return value
+
+
+_packs = _VersionCache()
+
+
+def kernel_pack_cached(weights, blocks) -> Tuple[torch.Tensor, ...]:
+    """:func:`kernel_pack`, computed once per set of weight tensors and
+    their versions (see ``_VersionCache`` for what it sees)."""
+    return _packs.get(weights, lambda: kernel_pack(weights, blocks))
+
+
+_stages = _VersionCache()
+
+
+def stage_weights_cached(
+    bb, block_names: Sequence[str], tail_expand: str | None = None
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[BlockSpec, ...]]:
+    """:func:`pack_stage_weights`, recomputed only when one of the convs'
+    weights or biases is replaced or updated in place (identity, ``_version``,
+    storage; see ``_VersionCache`` for what it does not see)."""
+    names = [f"{n}.{n}_{part}" for n in block_names
+             for part in ("expand", "depthwise", "project")]
+    names += [tail_expand] if tail_expand is not None else []
+    sources = [t for n in names for t in (bb.get_submodule(n).weight, bb.get_submodule(n).bias)]
+    return _stages.get(sources, lambda: pack_stage_weights(bb, block_names, tail_expand))
+
+
 def _launch(x: torch.Tensor, weights, blocks) -> torch.Tensor:
     if (x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[1] != x.shape[2]
             or x.shape[3] != blocks[0][0]):
         raise ValueError(f"fused_ir_stage takes (B, S, S, {blocks[0][0]}) bf16, "
                          f"got {x.dtype} {tuple(x.shape)}")
     B, S, _, _ = x.shape
+    if S > 32:
+        raise ValueError(f"fused_ir_stage takes S <= 32, got {S}")
     for w in weights:
         if w.device != x.device or not w.is_contiguous():
             raise ValueError("fused_ir_stage weights must be contiguous, on x's device")
     lib = _build.load("ir_stage")
+    packs = kernel_pack_cached(weights, blocks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     x = x.contiguous()
     wi = 0
-    for c_in, c_exp, c_out, residual in blocks:
-        we, be = weights[wi], weights[wi + 1]
-        wi += 2
+    for (c_in, c_exp, c_out, residual), pack in zip(blocks, packs):
+        be = weights[wi + 1]
         if c_out is None:
+            wi += 2
             out = torch.empty((B, S, S, c_exp), dtype=torch.bfloat16, device=x.device)
-            code = lib.ir_expand(x.data_ptr(), out.data_ptr(), we.data_ptr(),
-                                 be.data_ptr(), B, S, c_in, c_exp, stream)
+            code = lib.ir_expand(x.data_ptr(), out.data_ptr(), pack.data_ptr(), pack.numel(),
+                                 TAIL_NC, be.data_ptr(), B, S, c_in, c_exp, stream)
         else:
-            kdw, bdw, wp, bp = weights[wi : wi + 4]
-            wi += 4
+            kdw, bdw, bp = weights[wi + 2], weights[wi + 3], weights[wi + 5]
+            wi += 6
             out = torch.empty((B, S, S, c_out), dtype=torch.bfloat16, device=x.device)
-            code = lib.ir_block(x.data_ptr(), out.data_ptr(), we.data_ptr(),
-                                be.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
-                                wp.data_ptr(), bp.data_ptr(), B, S, c_in, c_out,
-                                int(residual), stream)
+            code = lib.ir_block(x.data_ptr(), out.data_ptr(), pack.data_ptr(), pack.numel(),
+                                CH, be.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
+                                bp.data_ptr(), B, S, c_in, c_out, int(residual), stream)
         _build.check(lib, "ir_stage", code)
         fused_ir_stage.launches += 1
         x = out

@@ -13,7 +13,8 @@ fallback: CUDA tensors the kernel does not take raise.
 The candidate order is computed outside the kernel, as ``tpurpn`` computes
 ``lax.top_k`` outside its kernel: ``torch.sort(..., descending=True,
 stable=True)`` breaks score ties toward the lower index like ``lax.top_k``
-(``torch.topk`` promises no tie order).
+(``torch.topk`` promises no tie order). ``_select`` launches the kernel on
+an order already computed, so the two can be timed apart.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def fused_proposals_plain(
     return {"roi_boxes": roi_boxes, "roi_scores": roi_scores, "num_valid": num_valid}
 
 
-def _launch(boxes, scores, pre, iou_threshold, max_output):
+def _check(boxes, scores, pre, max_output):
     B, N = scores.shape
     if boxes.shape != (B, N, 4) or boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise ValueError(
@@ -68,10 +69,17 @@ def _launch(boxes, scores, pre, iou_threshold, max_output):
         raise ValueError(f"need 0 < pre <= N and max_output > 0: {pre=} {N=} {max_output=}")
     if boxes.device != scores.device:
         raise ValueError("boxes and scores must be on one device")
-    boxes, scores = boxes.contiguous(), scores.contiguous()
+
+
+def _select(boxes, scores, order, iou_threshold, max_output):
+    """The selection kernel alone, on inputs ``_check`` passed and the
+    candidate order ``top_candidates`` gave (``order`` (B, pre) int64, every
+    index in [0, N)); counts one launch."""
+    B, N = scores.shape
+    pre = order.shape[1]
+    boxes, scores, order = boxes.contiguous(), scores.contiguous(), order.contiguous()
     if boxes.data_ptr() % 16:
         raise ValueError("fused_proposals reads boxes as float4: need 16-byte alignment")
-    order = top_candidates(scores, pre).contiguous()
     dev = boxes.device
     roi_boxes = torch.empty((B, max_output, 4), dtype=torch.float32, device=dev)
     roi_scores = torch.empty((B, max_output), dtype=torch.float32, device=dev)
@@ -84,6 +92,7 @@ def _launch(boxes, scores, pre, iou_threshold, max_output):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, "proposal", code)
+    fused_proposals.launches += 1
     return {"roi_boxes": roi_boxes, "roi_scores": roi_scores, "num_valid": num_valid}
 
 
@@ -107,9 +116,8 @@ def fused_proposals(
     """
     if boxes.device.type == "cpu":
         return fused_proposals_plain(boxes, scores, pre, iou_threshold, max_output)
-    out = _launch(boxes, scores, pre, iou_threshold, max_output)
-    fused_proposals.launches += 1
-    return out
+    _check(boxes, scores, pre, max_output)
+    return _select(boxes, scores, top_candidates(scores, pre), iou_threshold, max_output)
 
 
 fused_proposals.launches = 0
