@@ -30,11 +30,15 @@ matching entry beside it. It checks them:
 4. holds the target kernel (config 3: VGG16 anchors N=8,649, B=8, M=8)
    and the IoU-matching kernel against their plain versions: labels and
    indices bit for bit, delta rows 2-3 (logf) at rel 1e-6; then M=64 with
-   padded rows, an image without GT and a 22,500-anchor grid. Holds the NMS kernel against its
+   padded rows, an image without GT, a 22,500-anchor grid, a positive
+   budget above the candidates and one below them, no negative candidate,
+   budgets of 0, and N on each side of the size up to which the selection
+   keys stay in shared memory (25,600). Holds the NMS kernel against its
    plain version on the top-2000 of 32 serving images' decoded candidates
    bit for bit (keep mask and count), and at ties, duplicate boxes,
-   all-invalid rows, n not a multiple of the block and a kept list too
-   large for shared memory;
+   all-invalid rows, n not a multiple of the block, blocks of 32 and 256,
+   the count reaching max_output exactly at a block's end and inside a
+   chunk, n < 32, one image, and a kept list too large for shared memory;
 5. takes 5 train steps per backbone on a fixed batch, flip mask and words:
    finite losses, the last below the first, one target-kernel launch per step, BatchNorm
    running statistics moved (MobileNetV2); then one step with the plain
@@ -45,8 +49,10 @@ matching entry beside it. It checks them:
    config-4 NMS with CUDA events after a warm-up; each IR-stage launch by
    block shape, the kernel-ready weight pack, and the proposal wrapper's
    sort apart from its selection kernel (with the candidates each image's
-   walk visits); a torch.profiler trace of each end-to-end run gives the
-   card's busy time and idle share.
+   walk visits), the NMS wrapper's sorts apart from its keep kernel (with
+   the boxes and rounds each image's walk decides); a torch.profiler trace
+   of each end-to-end run, of each kernel wrapper and of the NMS wrapper
+   gives the card's busy time and idle share.
 
 Output: the card's name and power limit (``nvidia-smi``), JSON lines of
 measurements, one ``{"kernels": [...]}`` line, and last the line
@@ -64,6 +70,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth. A bound is the larger of bytes / bandwidth and of
@@ -199,12 +206,12 @@ def proposal_bound(torch, boxes, scores, pre, max_output, thr):
 
 
 def targets_bound(B, N, M):
-    """(bound_ms, bound_by) of target assignment: B*N*M IoU tests, 2 x 29
-    counting passes over the N keys of each image (compare + add) plus the
-    key and label work (~16 operations an anchor); the bytes of the anchors,
-    GT rows, labels and words read once and of the deltas and labels
-    written once."""
-    ops = B * N * M * IOU_OPS + B * N * (2 * 29 * 2 + 16)
+    """(bound_ms, bound_by) of target assignment: B*N*M IoU tests, 2 x 4
+    radix passes over the N keys of each image (compare, digit, count) plus
+    the key and label work (~16 operations an anchor); the bytes of the
+    anchors, GT rows, labels and words read once and of the deltas and
+    labels written once."""
+    ops = B * N * M * IOU_OPS + B * N * (2 * 4 * 3 + 16)
     nbytes = N * 16 + B * M * 20 + B * 2 * N * 4 + B * N * 20
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -219,19 +226,25 @@ def matching_bound(B, N, M):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nms_decided(torch, keep, max_output, block):
+    """(B,) boxes each image decides: the blocks up to the one in which its
+    count reaches max_output (the stop rule), or all n."""
+    n = keep.shape[1]
+    # first position whose block ends the walk: where the count reaches max_output
+    reached = torch.cumsum(keep.long(), 1) >= max_output
+    first = torch.where(reached.any(1), reached.float().argmax(1), n - 1)
+    return torch.clamp((first // block + 1) * block, max=n)
+
+
 def nms_bound(torch, keep, valid, max_output, block):
     """(bound_ms, bound_by) of the NMS keep mask on this run's boxes: the
-    blocks up to the one in which an image's count reaches max_output are
-    decided (the stop rule); each valid box there is tested against the
-    boxes kept before it; those boxes are read once, the mask and counts
-    written once."""
+    boxes each image decides (nms_decided) that are valid are each tested
+    against the boxes kept before it; those boxes are read once, the mask
+    and counts written once."""
     B, n = keep.shape
     k = keep.long()
     kept_before = torch.cumsum(k, 1) - k
-    # first position whose block ends the walk: where the count reaches max_output
-    reached = torch.cumsum(k, 1) >= max_output
-    first = torch.where(reached.any(1), reached.float().argmax(1), n - 1)
-    end = torch.clamp((first // block + 1) * block, max=n)
+    end = nms_decided(torch, keep, max_output, block)
     pos = torch.arange(n, device=keep.device)[None]
     visited = (pos < end[:, None]) & valid
     tests = int((kept_before * visited).sum())
@@ -251,14 +264,15 @@ def counts(kernels):
 
 def check_targets(torch, fused, plain, args, what):
     """Target kernel vs plain: labels bit for bit, delta rows 0-1 bit for
-    bit, rows 2-3 (logf vs log) at rel 1e-6. Returns max |delta diff|."""
+    bit, rows 2-3 (logf vs log) at rel 1e-6. Returns (max |delta diff|,
+    labels)."""
     (dk, lk), (dp, lp) = fused(*args), plain(*args)
     torch.cuda.synchronize()
     require(torch.equal(lk, lp), f"target kernel vs plain labels differ ({what})")
     require(torch.equal(dk[..., :2], dp[..., :2]), f"target kernel delta rows 0-1 differ ({what})")
     torch.testing.assert_close(dk[..., 2:], dp[..., 2:], rtol=1e-6, atol=0,
                                msg=f"target kernel delta rows 2-3 ({what})")
-    return float((dk - dp).abs().max())
+    return float((dk - dp).abs().max()), lk
 
 
 def max_diff(torch, a, b) -> float:
@@ -285,6 +299,14 @@ def check_nms(torch, fused, plain, args, what):
     require(torch.equal(kk, kp) and torch.equal(ck, cp),
             f"NMS kernel vs plain differ ({what}): counts {ck.tolist()[:8]} vs {cp.tolist()[:8]}")
     return ck, max(max_diff(torch, kk, kp), max_diff(torch, ck, cp))
+
+
+def disjoint_boxes(torch, B, n, dev):
+    """(B, n, 4) boxes on a grid, none overlapping another: every valid box
+    is kept."""
+    i = torch.arange(n, device=dev)
+    yx = torch.stack([torch.div(i, 128, rounding_mode="floor"), i % 128], -1).float() / 128
+    return torch.cat([yx, yx + 0.5 / 128], -1)[None].repeat(B, 1, 1).contiguous()
 
 
 def random_gt(torch, gen, B, M, n_valid, dev):
@@ -559,21 +581,46 @@ def main() -> int:
     words3 = torch.randint(-(2**31), 2**31, (tb, 2, hp3.total_anchors), generator=dgen,
                            device=dev, dtype=torch.int32)
     tg_args = (anchors3, gt3, lab3, words3, hp3)
-    tg_err = check_targets(torch, fused_rpn_targets, rpn_targets_plain, tg_args, "config 3")
+    tg_err, _ = check_targets(torch, fused_rpn_targets, rpn_targets_plain, tg_args, "config 3")
     mt_err = check_matching(torch, fused_iou_matching, iou_matching_plain, anchors3, gt3,
                             "config 3")
     tgt_edges = {}
     hp_big = get_hyper_params("vgg16", img_size=800)  # 22,500 anchors: a 15-bit index field
-    for name, (hpe, Bt, M, nv) in {"M64_padded": (hp3, 4, 64, 20), "no_gt": (hp3, 2, 8, 0),
-                                   "N22500": (hp_big, 2, 8, 5)}.items():
-        an = anchors3 if hpe is hp3 else generate_anchors(hpe, dev)
+
+    def random_anchors(n):
+        yx = torch.rand((n, 2), generator=dgen, device=dev) * 0.8
+        return torch.cat([yx, yx + torch.rand((n, 2), generator=dgen, device=dev) * 0.3 + 0.02], -1)
+
+    # the selection keys of an image stay in shared memory up to N = 25,600
+    for name, (hpe, an, Bt, M, nv) in {
+        "M64_padded": (hp3, anchors3, 4, 64, 20), "no_gt": (hp3, anchors3, 2, 8, 0),
+        "N22500": (hp_big, generate_anchors(hp_big, dev), 2, 8, 5),
+        "total_pos_above_candidates": (replace(hp3, total_pos_bboxes=4096), anchors3, 4, 8, 8),
+        "candidates_above_total_pos": (replace(hp3, pos_threshold=0.3), anchors3, 4, 8, 8),
+        "no_negative_candidate": (replace(hp3, neg_threshold=0.0), anchors3, 2, 8, 8),
+        "k_zero": (replace(hp3, total_pos_bboxes=0, total_neg_bboxes=0), anchors3, 2, 8, 8),
+        # every anchor touching a GT is a positive candidate: 128 positives
+        # fill the minibatch, and the negatives' budget is 0
+        "negative_budget_zero": (replace(hp3, pos_threshold=0.0, total_neg_bboxes=0),
+                                 anchors3, 2, 8, 8),
+        "N25600_keys_in_shared_memory": (hp3, random_anchors(25600), 2, 8, 8),
+        "N25601_keys_in_global_memory": (hp3, random_anchors(25601), 2, 8, 8),
+    }.items():
         gt, lab = random_gt(torch, dgen, Bt, M, nv, dev)
-        w = torch.randint(-(2**31), 2**31, (Bt, 2, hpe.total_anchors), generator=dgen,
+        w = torch.randint(-(2**31), 2**31, (Bt, 2, an.shape[0]), generator=dgen,
                           device=dev, dtype=torch.int32)
-        tgt_edges[f"targets_{name}_max_abs_err"] = check_targets(
+        tgt_edges[f"targets_{name}_max_abs_err"], labels_e = check_targets(
             torch, fused_rpn_targets, rpn_targets_plain, (an, gt, lab, w, hpe), name)
+        tgt_edges[f"targets_{name}_labels_pos_neg"] = [
+            int((labels_e == 1).sum()), int((labels_e == 0).sum())]
         tgt_edges[f"matching_{name}_max_abs_err"] = check_matching(
             torch, fused_iou_matching, iou_matching_plain, an, gt, name)
+    require(tgt_edges["targets_k_zero_labels_pos_neg"] == [0, 0], "budgets of 0 selected anchors")
+    require(tgt_edges["targets_negative_budget_zero_labels_pos_neg"] == [2 * 128, 0],
+            "a negative budget of 0 selected anchors")
+    require(tgt_edges["targets_no_gt_labels_pos_neg"][0] == 0, "positives without a GT box")
+    require(tgt_edges["targets_no_negative_candidate_labels_pos_neg"][1] == 0,
+            "negatives selected without a negative candidate")
     emit({"phase": "targets_kernel_vs_plain", "B": tb, "N": hp3.total_anchors,
           "M": int(gt3.shape[1]), "max_abs_err": tg_err, "matching_max_abs_err": mt_err,
           "tolerance": "labels and indices bit-exact, deltas rows 0-1 bit-exact, rows 2-3 rel 1e-6",
@@ -600,21 +647,40 @@ def main() -> int:
     tie_order = torch.sort(ties, dim=1, descending=True, stable=True).indices
     tie_boxes = torch.gather(rnd, 1, tie_order[..., None].expand(-1, -1, 4)).contiguous()
     all_valid = torch.ones((4, 1037), dtype=torch.bool, device=dev)
+    grid = disjoint_boxes(torch, 4, 1037, dev)
+    one = torch.ones((1, n4), dtype=torch.bool, device=dev)
     for name, a in {
         "random_n1037": (rnd, all_valid, 0.7, 300),
         "ties_sorted_stably": (tie_boxes, all_valid, 0.5, 100),
         "duplicates": (dup, all_valid, 0.7, 300),
         "all_invalid_rows": (rnd, half_invalid, 0.7, 50),
         "block_256": (rnd, all_valid, 0.6, 40, 256),
-        # 3,000 kept boxes of 1,024-wide blocks exceed shared memory: the
-        # kept list lives in the global scratch row
-        "kept_in_global_memory": (torch.cat([rnd, rnd, rnd], 1)[:2, :3000].contiguous(),
-                                  all_valid[:2].repeat(1, 3)[:, :3000], 0.9, 3000, 1024),
+        "block_32": (rnd, all_valid, 0.7, 300, 32),
+        # every box kept: the count reaches 256 exactly at the end of block 2
+        "count_reaches_max_at_block_end": (grid, all_valid, 0.7, 256),
+        # ... and the 300th keep lands in block 3's second chunk: the rest of
+        # the block is still decided, 384 keeps
+        "keep_300_mid_chunk": (grid, all_valid, 0.7, 300),
+        "n_below_32": (rnd[:, :20].contiguous(), all_valid[:, :20].contiguous(), 0.5, 300),
+        "one_image": (boxes4[:1].contiguous(), one, thr4, out4),
+        "max_output_3000_block_1024": (torch.cat([rnd, rnd, rnd], 1)[:2, :3000].contiguous(),
+                                       all_valid[:2].repeat(1, 3)[:, :3000], 0.9, 3000, 1024),
+        # 10,240 kept boxes (200 KB) exceed shared memory: the kept list
+        # lives in the global scratch row
+        "kept_in_global_memory": (disjoint_boxes(torch, 2, 10240, dev),
+                                  torch.ones((2, 10240), dtype=torch.bool, device=dev),
+                                  0.7, 10240, 1024),
     }.items():
         cnt, err = check_nms(torch, nms_keep, nms_keep_plain, a, name)
         nms_edges[f"{name}_counts"], nms_edges[f"{name}_max_abs_err"] = cnt.tolist(), err
     require(nms_edges["duplicates_counts"] == [2] * 4, "duplicates must leave two boxes an image")
     require(nms_edges["all_invalid_rows_counts"][:2] == [0, 0], "all-invalid rows kept boxes")
+    require(nms_edges["count_reaches_max_at_block_end_counts"] == [256] * 4,
+            "a count reaching max_output at a block's end must stop there")
+    require(nms_edges["keep_300_mid_chunk_counts"] == [384] * 4,
+            "the block of the 300th keep must be decided whole")
+    require(nms_edges["kept_in_global_memory_counts"] == [10240] * 2,
+            "every disjoint box must be kept")
     emit({"phase": "nms_kernel_vs_plain", "B": nb, "n": n4, "max_output": out4,
           "max_abs_err": nms_err,
           "tolerance": "bit-exact keep mask and count", **nms_edges})
@@ -757,11 +823,31 @@ def main() -> int:
         nms_plain_ms = time_ms(torch, lambda: nms_keep_plain(*nms_args), 3)
         bnms_ms = time_ms(torch, lambda: batched_non_max_suppression(
             boxes4, scores4, out4, thr4), 20)
+        # without the stable sort and gathers in front of the keep kernel
+        bnms_presorted_ms = time_ms(torch, lambda: batched_non_max_suppression(
+            boxes4, scores4, out4, thr4, presorted=True), 20)
         bnms_plain_ms = time_ms(torch, lambda: batched_non_max_suppression(
             boxes4, scores4, out4, thr4, use_kernel=False), 3)
+        bnms_busy_ms, bnms_ops = device_profile(torch, lambda: batched_non_max_suppression(
+            boxes4, scores4, out4, thr4))
+        # each wrapper's busy time on the card, apart from its host overhead
+        device_ms = {name: device_profile(torch, fn)[0] for name, fn in (
+            ("ir_stage", lambda: fused_ir_stage(feat6, weights, blocks)),
+            ("proposals", lambda: fused_proposals(boxes, scores, pre, thr, topn)),
+            ("targets", lambda: fused_rpn_targets(*tg_args)),
+            ("iou_matching", lambda: fused_iou_matching(anchors3, gt3)),
+            ("nms", lambda: nms_keep(*nms_args)))}
+    decided = nms_decided(torch, nms_keep(*nms_args)[0], out4, 128).float()
+    rounds = torch.ceil(decided / 32)  # 32 candidates a round
     emit({"phase": "config4_nms_ms", "batch": nb, "n": n4, "max_output": out4,
           "nms_keep_kernel": nms_ms, "nms_keep_plain": nms_plain_ms,
           "batched_nms_kernel_route": bnms_ms, "batched_nms_plain_route": bnms_plain_ms,
+          "batched_nms_presorted_kernel_route": bnms_presorted_ms,
+          "sort_and_gathers_in_front": bnms_ms - bnms_presorted_ms,
+          "glue_after_kernel": bnms_presorted_ms - nms_ms,
+          "batched_nms_device_busy_ms": bnms_busy_ms, "batched_nms_device_ops": bnms_ops,
+          "visited_boxes_mean": float(decided.mean()), "visited_boxes_max": int(decided.max()),
+          "rounds_mean": float(rounds.mean()), "rounds_max": int(rounds.max()),
           "nvidia_smi": smi})
     emit({"phase": "stages_ms", "batch": B, **stages})
     emit({"phase": "ir_stage_blocks_ms", "batch": B, "nvidia_smi": smi, **ir_block_ms})
@@ -783,6 +869,7 @@ def main() -> int:
          "launches": launches["bf16"]["ir_stage"],
          "launches_uint8": launches["uint8"]["ir_stage"],
          "max_abs_err": ir_err, "match": "bf16 tolerance", "ms": ir_ms,
+         "device_ms": device_ms["ir_stage"],
          "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by,
          "library_ms": None},
         {"name": "fused_proposals", "route": "cuda",
@@ -791,6 +878,7 @@ def main() -> int:
          "launches": launches["bf16"]["proposals"],
          "launches_uint8": launches["uint8"]["proposals"],
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
+         "device_ms": device_ms["proposals"],
          "select_ms": select_ms, "sort_ms": sort_ms,
          "plain_ms": pr_plain_ms, "bound_ms": pr_bound, "bound_by": pr_by,
          "library_ms": None},
@@ -800,19 +888,22 @@ def main() -> int:
          "launches": launches["vgg16"]["targets"],
          "launches_mobilenet_v2": launches["mobilenet_v2"]["targets"],
          "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
-         "ms": tg_ms, "plain_ms": tg_plain_ms, "bound_ms": tg_bound, "bound_by": tg_by,
+         "ms": tg_ms, "device_ms": device_ms["targets"], "plain_ms": tg_plain_ms,
+         "bound_ms": tg_bound, "bound_by": tg_by,
          "library_ms": None},
         {"name": "fused_iou_matching", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:413",
          "launches": launches["matching_path"]["iou_matching"],
-         "max_abs_err": mt_err, "match": "bit-exact", "ms": mt_ms, "plain_ms": mt_plain_ms,
+         "max_abs_err": mt_err, "match": "bit-exact", "ms": mt_ms,
+         "device_ms": device_ms["iou_matching"], "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
         {"name": "nms_keep", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/nms.cu",
          "replaces": "tpurpn/kernels/nms_pallas.py:191",
          "launches": launches["nms_path"]["nms"],
          "max_abs_err": nms_err, "match": "bit-exact", "ms": nms_ms,
+         "device_ms": device_ms["nms"],
          "plain_ms": nms_plain_ms,
          "bound_ms": nms_bd, "bound_by": nms_by, "library_ms": None},
     ]})

@@ -7,6 +7,10 @@ CPU tensors (``chip_smoke.py`` holds the CUDA kernel against it on the
 card). Against the jnp path, labels and matching agree bit for bit; deltas
 at rel 1e-6 (rows 2-3 go through log, whose rounding may differ by an ulp).
 
+A numpy model of the CUDA kernel's radix select (``csrc/targets.cu``) finds
+the same threshold as the binary search of ``tpurpn``'s kernel and selects
+what both packages' ``select_by_keys`` select.
+
 ``tpurpn``'s interpreted Pallas kernel computes some IoUs one ulp away from
 its own jnp twin (XLA rounds the fused kernel differently), which can flip
 a best-anchor tie; tests/test_target_pallas.py picks data without such a
@@ -155,6 +159,18 @@ def test_select_by_keys_matches_tpurpn(rng, k_max):
     assert got.sum(-1).tolist() == [0, 17, 40]
 
 
+def test_select_by_keys_with_a_budget_of_zero(rng):
+    """k_max = 0 (no positive budget) selects nothing, as tpurpn does."""
+    cand = rng.uniform(size=(2, 300)) < 0.5
+    w = words(6, 2, 300)[:, 0]
+    k_eff = np.zeros(2, np.float32)
+    ref = j_target.select_by_keys(jnp.asarray(cand), jnp.asarray(w), jnp.asarray(k_eff), k_max=0)
+    got = target.select_by_keys(torch.from_numpy(cand), torch.from_numpy(w),
+                                torch.from_numpy(k_eff), k_max=0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert not got.any()
+
+
 @pytest.mark.parametrize("B,M,n_valid", [(2, 8, 3), (3, 64, 20)])
 def test_iou_matching_matches_tpurpn(B, M, n_valid):
     jhp, thp = hp_pair()
@@ -206,3 +222,79 @@ def test_random_select_mask_keeps_a_subset(rng, k_max):
     sel = target.random_select_mask(mask, limit, torch.Generator().manual_seed(0), k_max=k_max)
     assert not (sel & ~mask).any()
     assert sel.sum(-1).tolist() == torch.minimum(limit, mask.sum(-1)).tolist()
+
+
+KEY_SENTINEL = 1 << 29
+
+
+def _radix_select(keys, budget):
+    """csrc/targets.cu's radix_select on one key row: 4 passes of 7 bits,
+    each a 128-bin histogram of the digit among the keys under the prefix
+    found so far (the sentinel's top digit is never 0, so pass 0 counts the
+    real keys only), then the digit where the running count reaches the rank
+    sought. Returns (threshold, k) with k = min(budget, real keys)."""
+    if budget <= 0:
+        return -1, 0
+    keys = keys.astype(np.int64)
+    prefix, rank, k = 0, budget, None
+    for p in range(4):
+        shift = 28 - 7 * (p + 1)
+        under = keys[(keys >> (shift + 7)) == prefix]
+        bins = np.bincount((under >> shift) & 127, minlength=128)
+        if p == 0:
+            k = rank = min(rank, int(bins.sum()))
+            if k == 0:
+                return -1, 0
+        incl = np.cumsum(bins)
+        d = int(np.searchsorted(incl, rank))  # the first digit whose count reaches rank
+        rank -= int(incl[d] - bins[d])
+        prefix = (prefix << 7) | d
+    return prefix, k
+
+
+def _binary_search_threshold(keys, k):
+    """tpurpn's _kth_smallest_threshold: the smallest T with count(keys <= T) >= k."""
+    if k <= 0:
+        return -1
+    lo, hi = 0, 1 << 28
+    for _ in range(29):
+        mid = (lo + hi) >> 1
+        if (keys <= mid).sum() >= k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return hi
+
+
+@pytest.mark.parametrize("name,N,density,budget", [
+    ("k0", 8649, 0.5, 0), ("k1", 8649, 0.5, 1), ("k_available", 8649, 0.01, None),
+    ("k_above_available", 8649, 0.005, 128), ("forced_positive", 8649, 0.0, 128),
+    ("no_candidate", 8649, 0.0, 64), ("N22500_lane_bits_15", 22500, 0.3, 256)])
+def test_radix_select_matches_select_by_keys(rng, name, N, density, budget):
+    B = 2
+    words_np = rng.integers(-(2**31), 2**31, size=(B, N), dtype=np.int64).astype(np.int32)
+    cand = rng.uniform(size=(B, N)) < density
+    if name == "forced_positive":  # one candidate below any threshold, forced in
+        cand[:, rng.integers(N)] = True
+    keys = target.selection_keys(torch.from_numpy(words_np), N).numpy()
+    np.testing.assert_array_equal(
+        keys, np.asarray(j_target.selection_keys(jnp.asarray(words_np), N)))
+    keys = np.where(cand, keys, KEY_SENTINEL)
+    avail = cand.sum(-1)
+    k_eff = np.minimum(avail if budget is None else budget, avail).astype(np.float32)
+    port = target.select_by_keys(torch.from_numpy(cand), torch.from_numpy(words_np),
+                                 torch.from_numpy(k_eff), k_max=None).numpy()
+    ref = np.asarray(j_target.select_by_keys(jnp.asarray(cand), jnp.asarray(words_np),
+                                             jnp.asarray(k_eff)))
+    for b in range(B):
+        thr, k = _radix_select(keys[b], avail[b] if budget is None else budget)
+        assert k == int(k_eff[b])
+        assert thr == _binary_search_threshold(keys[b], k)
+        assert thr == (np.sort(keys[b])[k - 1] if k else -1)  # select_by_keys' threshold
+        np.testing.assert_array_equal(keys[b] <= thr, port[b])
+        np.testing.assert_array_equal(keys[b] <= thr, ref[b])
+        assert (keys[b] <= thr).sum() == k  # unique keys: exactly k selected
+    if name == "k_above_available":
+        assert (avail < budget).all()
+    if name in ("no_candidate", "k0"):
+        assert not port.any()

@@ -45,6 +45,36 @@ __device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, floa
   return box_iou(a, area_a, b, area_b) > thr;
 }
 
+__device__ __forceinline__ uint32_t lane_id() {
+  uint32_t lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  return lane;
+}
+
+// A round of greedy NMS over a chunk of 32 candidates in score order gives
+// one warp to each candidate. The warp of candidate w (box v, area a; all
+// 32 lanes call with the same values) builds w's row over the chunk (cbox,
+// carea: the chunk's 32 boxes) in one ballot: bit j < w set when candidate
+// j, if kept, suppresses w.
+__device__ __forceinline__ uint32_t chunk_row(float4 v, float a, const float4* cbox,
+                                              const float* carea, int w, float thr) {
+  const int lane = lane_id();
+  return __ballot_sync(0xffffffffu, lane < w && iou_above(v, a, cbox[lane], carea[lane], thr));
+}
+
+// ... and tests it against the `kept` boxes kept before the chunk, 32 a step
+// (one a lane), stopping at the first step with a hit (one vote a step).
+__device__ __forceinline__ bool kept_suppresses(float4 v, float a, const float4* kbox,
+                                                const float* karea, int kept, float thr) {
+  const int lane = lane_id();
+  int hit = 0;
+  for (int k0 = 0; k0 < kept && !hit; k0 += 32) {
+    const int k = k0 + lane;
+    hit = __any_sync(0xffffffffu, k < kept && iou_above(v, a, kbox[k], karea[k], thr));
+  }
+  return hit;
+}
+
 // Greedy NMS over one chunk of up to 32 candidates in score order, resolved
 // by one warp (all 32 lanes call it with the same `alive` and `room`).
 // alive: bit i set when candidate i is a candidate and no box kept before the
@@ -56,9 +86,7 @@ __device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, floa
 // the longest suppression chain in the chunk (at most 32 steps); then only
 // the first `room` keeps stay. Returns the kept mask.
 __device__ __forceinline__ uint32_t chunk_walk(uint32_t alive, uint32_t row, int room) {
-  uint32_t lane;
-  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
-  const bool mine = (alive >> lane) & 1u;
+  const bool mine = (alive >> lane_id()) & 1u;
   uint32_t keep = alive, prev;
   do {
     prev = keep;

@@ -30,6 +30,8 @@
 //   (b) the same warp builds the candidate's in-chunk row in one ballot:
 //       lane j < w votes IoU(w, j) > thr;
 //   -- barrier --
+//   (the tests of (a) and (b) are common.cuh's kept_suppresses and
+//   chunk_row, shared with nms.cu)
 //   (c) warp 0 resolves the chunk with chunk_walk (common.cuh): a ballot
 //       fixpoint over the rows, a step per link of the longest suppression
 //       chain, stopping exactly at max_output keeps even inside the chunk;
@@ -106,16 +108,9 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
         const float4 v = cbox[w];
         const float a = carea[w];
         // (b) bit j: candidate j < w of the chunk suppresses w
-        const uint32_t row = __ballot_sync(
-            0xffffffffu, lane < warp && iou_above(v, a, cbox[c0 + lane], carea[c0 + lane],
-                                                  iou_threshold));
+        const uint32_t row = chunk_row(v, a, cbox + c0, carea + c0, warp, iou_threshold);
         // (a) any box kept before the chunk suppresses w
-        int hit = 0;
-        for (int k0 = 0; k0 < kept && !hit; k0 += 32) {
-          const int k = k0 + lane;
-          hit = __any_sync(0xffffffffu,
-                           k < kept && iou_above(v, a, kbox[k], karea[k], iou_threshold));
-        }
+        const int hit = kept_suppresses(v, a, kbox, karea, kept, iou_threshold);
         if (lane == 0) {
           s_row[warp] = row;
           s_hit[warp] = hit;

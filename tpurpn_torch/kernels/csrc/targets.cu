@@ -20,17 +20,36 @@
 // Phase 2 (selection): positives are IoU > pos_threshold or the best anchor
 // of a valid GT; negatives IoU < neg_threshold and not selected positive.
 // Each candidate gets its unique 28-bit key (top random bits of its word
-// above the anchor index); the k-th smallest key is found by the same
-// 29-round counting binary search as _kth_smallest_threshold, each round one
-// block-wide count. Keys live in a global scratch row (B, 2, N), L1-resident
-// at these sizes. Then labels 1/0/-1 and the matched-GT deltas, encoded as
-// tpurpn.boxes.get_deltas_from_bboxes and divided by the variances.
+// above the anchor index); the others hold the sentinel 2**29. The k
+// candidates with the smallest keys are kept. Then labels 1/0/-1 and the
+// matched-GT deltas, encoded as tpurpn.boxes.get_deltas_from_bboxes and
+// divided by the variances.
 //
 // What bounds it: config 3 (B=8, N=8,649, M=8) is 0.55 M IoU tests and
-// about 0.5 MB of words, anchors and outputs; both take under a microsecond
-// of the card. The kernel is latency-bound instead: 8 blocks on 132 SMs, and
-// 58 dependent block-wide counts (2 x 29 rounds, each a barrier). Speeding
-// it up (a radix select, more blocks per image) is later work.
+// about 2 MB of words, anchors and outputs; both take under a microsecond
+// of the card. The kernel is latency-bound instead: 8 blocks on 132 SMs,
+// and a chain of dependent block-wide steps, each behind a barrier. The TPU
+// kernel finds each threshold by a 29-round counting binary search
+// (_kth_smallest_threshold), 58 block-wide counts for the two selections.
+//
+// Design: the k-th smallest key is found by a radix select of 4 passes of 7
+// bits (radix_select). A pass builds a 128-bin histogram in shared memory
+// (shared atomics) of the digit among the keys whose higher digits equal
+// the prefix found so far; then one warp scans the bins (4 a lane, a
+// shuffle scan) and takes the digit where the running count reaches the
+// rank sought. Two barriers a pass: the bins are double-buffered, and the
+// scanning warp clears the other buffer. Since the keys are unique, this
+// is exactly the binary search's threshold; the first pass's histogram
+// total is the number of candidates (the sentinel has a nonzero top digit
+// and is never counted), and the positives selected number exactly k, so
+// no other block-wide count is needed. Both key rows of an image (8 bytes
+// an anchor) live in shared memory up to N = 25,600 (200 KB), else in the
+// global scratch row (B, 2, N). One read of the matching results builds
+// both key rows; a selected positive leaves the negative row afterwards.
+// Each image's work runs on one SM, so its instruction count matters: only
+// the positives (at most total_pos) take the full delta encoding, the rest
+// write the zero box's encoding. What is left is mostly Phase 1, which the
+// matching entry shares (PERF.md).
 //
 // Exactness: the IoU and the deltas are computed op for op as the plain
 // version (-fmad=false, IEEE division), so the matching and the labels are
@@ -47,21 +66,9 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGtChunk = 8;
 constexpr int kKeySentinel = 1 << 29;  // above any real key (< 2**28)
-
-// Sum of v over the block. `red` is 2 x kWarps ints used in turns, so one
-// barrier a call suffices: a thread writes a buffer again only after every
-// thread has passed the barrier of the call between, and with it the reads.
-__device__ __forceinline__ int block_sum(int v, int* red, int& parity) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  int* r = red + parity * kWarps;
-  parity ^= 1;
-  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += r[w];
-  return s;
-}
+constexpr int kRadixBits = 7;          // 4 passes over the 28-bit keys
+constexpr int kBins = 1 << kRadixBits;
+constexpr size_t kKeySmemLimit = 200 * 1024;  // both key rows of an image
 
 // (v, i) beats (ov, oi) when larger, or equal with a lower index.
 __device__ __forceinline__ void take_max(float& v, int& i, float ov, int oi) {
@@ -150,22 +157,76 @@ __device__ __forceinline__ int selection_key(int word, int n, int lane_bits) {
   return (int)(((uint32_t)word >> (32 - rand_bits)) << lane_bits) | n;
 }
 
-// The k-th smallest key of keys[0, N) (unique keys, k <= candidates), or -1
-// for k <= 0: the smallest T with count(keys <= T) >= k, by the 29-round
-// binary search of _kth_smallest_threshold.
-__device__ int kth_smallest_key(const int* keys, int N, int k, int* red, int& parity) {
-  if (k <= 0) return -1;  // k is uniform over the block
-  int lo = 0, hi = 1 << 28;
-  for (int round = 0; round < 29; ++round) {
-    const int mid = (lo + hi) >> 1;
-    int c = 0;
-    for (int n = threadIdx.x; n < N; n += kThreads) c += keys[n] <= mid;
-    if (block_sum(c, red, parity) >= k)
-      hi = mid;
-    else
-      lo = mid + 1;
+// Shared state of radix_select: two buffers of bins, used in turns, and
+// the scanning warp's answer.
+struct RadixScratch {
+  int bins[2][kBins];
+  int prefix, rank, k;
+};
+
+// The k-th smallest key of keys[0, N), k = min(budget, number of real keys
+// < 2**28): the smallest T with count(keys <= T) >= k, as the binary search
+// of _kth_smallest_threshold finds it; -1 for k = 0. Sets k (uniform over
+// the block). Four passes of 7 bits, most significant first; `parity`
+// names the bins buffer to fill next, which is zero on entry, and every
+// scan clears the other one, so a pass has two barriers.
+__device__ int radix_select(const int* keys, int N, int budget, int& k, RadixScratch& s,
+                            int& parity) {
+  k = 0;
+  if (budget <= 0) return -1;  // budget is uniform over the block
+  const int lane = threadIdx.x & 31;
+  uint32_t prefix = 0;
+  int rank = budget;  // the rank sought among the keys under this prefix
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 28 - kRadixBits * (pass + 1);
+    int* bins = s.bins[parity];
+    // the digit of the keys under the prefix; in pass 0 the prefix is 0,
+    // which the sentinel's top bits never equal
+#pragma unroll 4
+    for (int n = threadIdx.x; n < N; n += kThreads) {
+      const uint32_t key = keys[n];
+      if ((key >> (shift + kRadixBits)) == prefix)
+        atomicAdd(&bins[(key >> shift) & (kBins - 1)], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {  // one warp scans the bins, 4 a lane
+      const int4 c = reinterpret_cast<const int4*>(bins)[lane];
+      reinterpret_cast<int4*>(s.bins[parity ^ 1])[lane] = make_int4(0, 0, 0, 0);
+      const int sum = c.x + c.y + c.z + c.w;
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (pass == 0) {
+        rank = min(rank, __shfl_sync(0xffffffffu, incl, 31));  // the real keys
+        if (lane == 0) s.k = rank;
+      }
+      const int excl = incl - sum;
+      if (excl < rank && rank <= incl) {  // this lane's bins hold the rank
+        int d = 4 * lane, below = excl;
+        if (below + c.x < rank) {
+          below += c.x, ++d;
+          if (below + c.y < rank) {
+            below += c.y, ++d;
+            if (below + c.z < rank) below += c.z, ++d;
+          }
+        }
+        s.prefix = (int)((prefix << kRadixBits) | d);
+        s.rank = rank - below;
+      }
+    }
+    __syncthreads();
+    parity ^= 1;
+    if (pass == 0) {
+      k = s.k;
+      if (k == 0) return -1;
+    }
+    prefix = s.prefix;
+    rank = s.rank;
   }
-  return hi;
+  return (int)prefix;
 }
 
 __global__ void __launch_bounds__(kThreads) matching_kernel(
@@ -186,11 +247,14 @@ struct TargetParams {
 
 __global__ void __launch_bounds__(kThreads) targets_kernel(
     const float4* __restrict__ anchors, const float4* __restrict__ gt_boxes,
-    const int* __restrict__ gt_valid, const int* __restrict__ rand_words,
+    const int* __restrict__ gt_labels, const int* __restrict__ rand_words,
     float4* __restrict__ deltas, float* __restrict__ labels, float* merged_all,
-    int* best_gt_all, int* best_anchor_all, int* keys_all, int N, int M, TargetParams p) {
-  __shared__ int red[2 * kWarps];
+    int* best_gt_all, int* best_anchor_all, int* keys_all, int N, int M, int keys_in_smem,
+    TargetParams p) {
+  extern __shared__ int s_keys[];  // both key rows, when keys_in_smem
+  __shared__ __align__(16) RadixScratch radix;
   const int b = blockIdx.x, t = threadIdx.x;
+  if (t < 2 * kBins) (&radix.bins[0][0])[t] = 0;  // before iou_phase's barriers
   const float4* gt = gt_boxes + (size_t)b * M;
   float* merged = merged_all + (size_t)b * N;
   int* best_gt = best_gt_all + (size_t)b * N;
@@ -199,49 +263,55 @@ __global__ void __launch_bounds__(kThreads) targets_kernel(
 
   const int* w_pos = rand_words + (size_t)b * 2 * N;
   const int* w_neg = w_pos + N;
-  int* pos_keys = keys_all + (size_t)b * 2 * N;
+  int* pos_keys = keys_in_smem ? s_keys : keys_all + (size_t)b * 2 * N;
   int* neg_keys = pos_keys + N;
   int parity = 0;
 
-  // positive candidates: above the threshold, then the forced best anchor
-  // of every valid GT (several GTs may force one anchor: same value written)
-  for (int n = t; n < N; n += kThreads)
-    pos_keys[n] = merged[n] > p.pos_threshold ? selection_key(w_pos[n], n, p.lane_bits)
-                                              : kKeySentinel;
+  // positive candidates above the threshold and negative candidates below
+  // it, one read of the matching results; then the forced best anchor of
+  // every valid GT (several GTs may force one anchor: same value written)
+#pragma unroll 4
+  for (int n = t; n < N; n += kThreads) {
+    const float m = merged[n];
+    pos_keys[n] = m > p.pos_threshold ? selection_key(w_pos[n], n, p.lane_bits) : kKeySentinel;
+    neg_keys[n] = m < p.neg_threshold ? selection_key(w_neg[n], n, p.lane_bits) : kKeySentinel;
+  }
   __syncthreads();
   for (int m = t; m < M; m += kThreads) {
-    if (gt_valid[(size_t)b * M + m]) {
+    if (gt_labels[(size_t)b * M + m] != -1) {
       const int a = best_anchor[m];
       pos_keys[a] = selection_key(w_pos[a], a, p.lane_bits);
     }
   }
   __syncthreads();
-  int c = 0;
-  for (int n = t; n < N; n += kThreads) c += pos_keys[n] != kKeySentinel;
-  const int avail_pos = block_sum(c, red, parity);
-  const int t_pos = kth_smallest_key(pos_keys, N, min(p.total_pos, avail_pos), red, parity);
+  int k_pos, k_neg;
+  const int t_pos = radix_select(pos_keys, N, p.total_pos, k_pos, radix, parity);
 
-  // negative candidates: below the threshold and not selected positive
-  c = 0;
-  int c_neg = 0;
-  for (int n = t; n < N; n += kThreads) {
-    const bool pos = pos_keys[n] <= t_pos;
-    const bool cand = !pos && merged[n] < p.neg_threshold;
-    c += pos;
-    c_neg += cand;
-    neg_keys[n] = cand ? selection_key(w_neg[n], n, p.lane_bits) : kKeySentinel;
-  }
-  const int pos_count = block_sum(c, red, parity);
-  const int avail_neg = block_sum(c_neg, red, parity);  // also orders neg_keys' writes
+  // a selected positive is no negative candidate (a forced anchor may be
+  // below the negative threshold). The keys are unique, so exactly k_pos
+  // positives are selected. Each thread changes and then counts only its
+  // own anchors' keys: no barrier between.
+  for (int n = t; n < N; n += kThreads)
+    if (pos_keys[n] <= t_pos) neg_keys[n] = kKeySentinel;
   const int t_neg =
-      kth_smallest_key(neg_keys, N, min(p.total_minibatch - pos_count, avail_neg), red, parity);
+      radix_select(neg_keys, N, p.total_minibatch - k_pos, k_neg, radix, parity);
 
+  // an anchor without a matched GT encodes the zero box: 0 / variance in
+  // every row (get_deltas_from_bboxes gives 0 where the GT height or width
+  // is 0); only the positives take the full encoding
+  const float4 zero = make_float4(0.0f / p.var[0], 0.0f / p.var[1], 0.0f / p.var[2],
+                                  0.0f / p.var[3]);
+#pragma unroll 4
   for (int n = t; n < N; n += kThreads) {
     const bool pos = pos_keys[n] <= t_pos;
     const bool neg = neg_keys[n] <= t_neg;
     labels[(size_t)b * N + n] = pos ? 1.0f : (neg ? 0.0f : -1.0f);
+    if (!pos) {
+      deltas[(size_t)b * N + n] = zero;
+      continue;
+    }
     const float4 a = anchors[n];
-    const float4 g = pos ? gt[best_gt[n]] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 g = gt[best_gt[n]];
     // get_deltas_from_bboxes: centres from the raw sizes, then the guards
     const float a_h0 = a.z - a.x, a_w0 = a.w - a.y;
     const float a_cy = a.x + 0.5f * a_h0, a_cx = a.y + 0.5f * a_w0;
@@ -272,7 +342,7 @@ TPURPN_EXPORT int iou_matching(const float* anchors, const float* gt_boxes, floa
   return cudaGetLastError();
 }
 
-TPURPN_EXPORT int rpn_targets(const float* anchors, const float* gt_boxes, const int* gt_valid,
+TPURPN_EXPORT int rpn_targets(const float* anchors, const float* gt_boxes, const int* gt_labels,
                               const int* rand_words, float* deltas, float* labels,
                               float* merged, int* best_gt, int* best_anchor, int* keys, int B,
                               int N, int M, int lane_bits, float pos_threshold,
@@ -283,10 +353,16 @@ TPURPN_EXPORT int rpn_targets(const float* anchors, const float* gt_boxes, const
     return cudaErrorInvalidValue;
   TargetParams p{lane_bits, pos_threshold, neg_threshold, total_pos, total_minibatch,
                  {var0, var1, var2, var3}};
-  targets_kernel<<<B, kThreads, 0, stream>>>(
+  const size_t key_bytes = (size_t)N * 2 * sizeof(int);
+  const int keys_in_smem = key_bytes <= kKeySmemLimit;
+  const size_t smem = keys_in_smem ? key_bytes : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      targets_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  targets_kernel<<<B, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(anchors), reinterpret_cast<const float4*>(gt_boxes),
-      gt_valid, rand_words, reinterpret_cast<float4*>(deltas), labels, merged, best_gt,
-      best_anchor, keys, N, M, p);
+      gt_labels, rand_words, reinterpret_cast<float4*>(deltas), labels, merged, best_gt,
+      best_anchor, keys, N, M, keys_in_smem, p);
   return cudaGetLastError();
 }
 

@@ -61,15 +61,14 @@ def _launch(boxes_sorted, valid, iou_threshold, max_output, block):
     dev = boxes_sorted.device
     keep = torch.empty((B, n), dtype=torch.bool, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
-    # the kept boxes of an image: fewer than max_output before its last
-    # block, plus that block; in shared memory when they fit, else here
+    # the kept boxes and areas of an image: fewer than max_output before its
+    # last block, plus that block; in shared memory when they fit, else here
     cap = max(1, min(n, max_output + block - 1))
-    kept_box = torch.empty((B, cap, 4), dtype=torch.float32, device=dev)
-    kept_area = torch.empty((B, cap), dtype=torch.float32, device=dev)
+    kept = torch.empty((B * cap * 5,), dtype=torch.float32, device=dev)
     lib = _build.load("nms")
     code = lib.nms_keep(
         boxes_sorted.data_ptr(), valid.data_ptr(), keep.data_ptr(), count.data_ptr(),
-        kept_box.data_ptr(), kept_area.data_ptr(), B, n, max_output, block, cap,
+        kept.data_ptr(), kept.data_ptr() + 16 * B * cap, B, n, max_output, block, cap,
         float(iou_threshold), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, "nms", code)

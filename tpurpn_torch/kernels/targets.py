@@ -112,22 +112,23 @@ def fused_rpn_targets(
     if gt_labels.device != anchors.device or rand_bits.device != anchors.device:
         raise ValueError("fused_rpn_targets: all inputs must be on one device")
     anchors, gt_boxes = _aligned(anchors, gt_boxes)
-    valid = (gt_labels != -1).to(torch.int32).contiguous()
+    gt_labels = gt_labels.to(torch.int32).contiguous()  # -1 marks padding
     rand_bits = rand_bits.contiguous()
     dev = anchors.device
     deltas = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
     labels = torch.empty((B, N), dtype=torch.float32, device=dev)
-    # per-anchor matching results and selection keys of each image
-    merged = torch.empty((B, N), dtype=torch.float32, device=dev)
-    best_gt = torch.empty((B, N), dtype=torch.int32, device=dev)
-    best_anchor = torch.empty((B, M), dtype=torch.int32, device=dev)
-    keys = torch.empty((B, 2, N), dtype=torch.int32, device=dev)
+    # one scratch row of 4-byte words: per-anchor merged IoU (f32) and best
+    # GT, per-GT best anchor, and the two selection-key rows (used where
+    # they do not fit in shared memory)
+    scratch = torch.empty((B * (4 * N + M),), dtype=torch.int32, device=dev)
     v = [float(x) for x in hp.variances]
     lib = _build.load("targets")
+    merged, best_gt, best_anchor, keys = (
+        scratch.data_ptr() + 4 * B * off for off in (0, N, 2 * N, 2 * N + M))
     code = lib.rpn_targets(
-        anchors.data_ptr(), gt_boxes.data_ptr(), valid.data_ptr(), rand_bits.data_ptr(),
-        deltas.data_ptr(), labels.data_ptr(), merged.data_ptr(), best_gt.data_ptr(),
-        best_anchor.data_ptr(), keys.data_ptr(), B, N, M, _lane_bits_for(N),
+        anchors.data_ptr(), gt_boxes.data_ptr(), gt_labels.data_ptr(), rand_bits.data_ptr(),
+        deltas.data_ptr(), labels.data_ptr(), merged, best_gt, best_anchor, keys,
+        B, N, M, _lane_bits_for(N),
         float(hp.pos_threshold), float(hp.neg_threshold), int(hp.total_pos_bboxes),
         int(hp.total_pos_bboxes + hp.total_neg_bboxes), v[0], v[1], v[2], v[3],
         torch.cuda.current_stream(dev).cuda_stream,

@@ -77,7 +77,7 @@ def select_by_keys(
     N = cand.shape[-1]
     keys = torch.where(cand, selection_keys(rand_words, N), KEY_SENTINEL)
     k_int = k_eff.to(torch.int64)
-    if k_max is not None and k_max < N:
+    if k_max is not None and 0 < k_max < N:
         sorted_keys = torch.topk(keys, k_max, dim=-1, largest=False, sorted=True).values
         k_idx = torch.clamp(k_int - 1, 0, k_max - 1)
     else:
