@@ -32,13 +32,17 @@ matching entry beside it. It checks them:
    indices bit for bit, delta rows 2-3 (logf) at rel 1e-6; then M=64 with
    padded rows, an image without GT, a 22,500-anchor grid, a positive
    budget above the candidates and one below them, no negative candidate,
-   budgets of 0, and N on each side of the size up to which the selection
-   keys stay in shared memory (25,600). Holds the NMS kernel against its
-   plain version on the top-2000 of 32 serving images' decoded candidates
-   bit for bit (keep mask and count), and at ties, duplicate boxes,
-   all-invalid rows, n not a multiple of the block, blocks of 32 and 256,
-   the count reaching max_output exactly at a block's end and inside a
-   chunk, n < 32, one image, and a kept list too large for shared memory;
+   budgets of 0, N on each side of the size up to which the selection
+   keys stay in shared memory (25,600), and the edges of the matching's
+   cluster slices (a tie across a slice boundary, a GT disjoint from every
+   anchor, IoUs of -0 and +0, N = 5 < C, N = 8,651, M = 1, B = 1); reports
+   each entry's cluster size C (one cluster of C blocks an image). Holds
+   the NMS kernel against its plain version on the top-2000 of 32 serving
+   images' decoded candidates bit for bit (keep mask and count), and at
+   ties, duplicate boxes, all-invalid rows, n not a multiple of the block,
+   blocks of 32 and 256, the count reaching max_output exactly at a
+   block's end and inside a chunk, n < 32, one image, and a kept list too
+   large for shared memory;
 5. takes 5 train steps per backbone on a fixed batch, flip mask and words:
    finite losses, the last below the first, one target-kernel launch per step, BatchNorm
    running statistics moved (MobileNetV2); then one step with the plain
@@ -115,23 +119,38 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, iters: int = 3):
+def device_profile(torch, fn, iters: int = 5, tries: int = 3):
     """(device busy ms, device operations) per call of ``fn`` from a
     torch.profiler trace: the summed durations of the operations that ran on
-    the card (kernels, copies, fills), which one stream runs one after
-    another. (None, 0) when the trace holds no device time."""
+    the card (kernels, copies, fills, not the step annotations), which one
+    stream runs one after another. The trace's first step is a warm-up and
+    is not counted: the kernels launched just after tracing starts can be
+    missing from it (a trace of three calls once held two calls' kernels).
+    A trace whose device operations do not divide evenly among the calls is
+    taken again, up to ``tries`` times. (None, 0) when no trace holds a
+    whole number of calls' device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    return (busy_us / iters / 1e3 if busy_us else None), len(on_device) / iters
+    for _ in range(tries):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=iters),
+                     on_trace_ready=lambda p: traces.append(list(p.events()))) as prof:
+            for _ in range(iters + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step annotations (ProfilerStep#) span each step on the card too
+        on_device = [e for e in (traces[-1] if traces else [])
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                     and not e.name.startswith("ProfilerStep")]
+        busy_us = sum(e.self_device_time_total for e in on_device)
+        if busy_us and len(on_device) % iters == 0:
+            return busy_us / iters / 1e3, len(on_device) / iters
+    return None, 0
 
 
 def nvidia_smi() -> str:
@@ -447,7 +466,7 @@ def main() -> int:
         pack_stage_weights, stage_weights_cached)
     from tpurpn_torch.kernels.proposal import (
         _select, fused_proposals, fused_proposals_plain, top_candidates)
-    from tpurpn_torch.kernels.targets import fused_iou_matching, fused_rpn_targets
+    from tpurpn_torch.kernels.targets import cluster_size, fused_iou_matching, fused_rpn_targets
     from tpurpn_torch.kernels.nms import nms_keep, nms_keep_plain
     from tpurpn_torch.boxes import batched_non_max_suppression
     from tpurpn_torch.data import SyntheticVOC
@@ -591,6 +610,26 @@ def main() -> int:
         yx = torch.rand((n, 2), generator=dgen, device=dev) * 0.8
         return torch.cat([yx, yx + torch.rand((n, 2), generator=dgen, device=dev) * 0.3 + 0.02], -1)
 
+    # the matching runs one cluster of C blocks an image, block r on the
+    # anchors [r*S, (r+1)*S), S = ceil(N / C): a tie across slice
+    # boundaries (copies of anchor 3 in later slices, C = 8 or 16), a GT
+    # disjoint from every anchor, IoUs of -0 and +0 (anchors ending at y =
+    # -0.0 touch a GT starting at +0.0), empty slices (N < C) and a short
+    # last one (N not a multiple of C)
+    n3 = hp3.total_anchors
+    anchors5 = random_anchors(5)
+    tie_anchors = anchors3.clone()
+    s16 = -(-n3 // 16)
+    for k in range(1, 16):
+        tie_anchors[k * s16 + 5] = anchors3[3]
+    zero_anchors = random_anchors(n3)
+    zero_anchors[:, 0::2] += 0.5  # below y = 0.5: disjoint from the touching GT
+    zero_anchors[1::7] = torch.tensor([-0.5, 0.1, -0.0, 0.3], device=dev)
+    gt_rows = {  # GT rows set in place of the first random ones, and their best anchor
+        "tie_across_slices": ([anchors3[3].tolist()], 3),
+        "gt_disjoint": ([[5.0, 5.0, 6.0, 6.0]], 0),
+        "signed_zero_ious": ([[0.0, 0.1, 0.2, 0.3], [5.0, 5.0, 6.0, 6.0]], 0),
+    }
     # the selection keys of an image stay in shared memory up to N = 25,600
     for name, (hpe, an, Bt, M, nv) in {
         "M64_padded": (hp3, anchors3, 4, 64, 20), "no_gt": (hp3, anchors3, 2, 8, 0),
@@ -605,8 +644,20 @@ def main() -> int:
                                  anchors3, 2, 8, 8),
         "N25600_keys_in_shared_memory": (hp3, random_anchors(25600), 2, 8, 8),
         "N25601_keys_in_global_memory": (hp3, random_anchors(25601), 2, 8, 8),
+        "tie_across_slices": (hp3, tie_anchors, 4, 8, 8),
+        "gt_disjoint": (hp3, anchors3, 4, 8, 4),
+        "signed_zero_ious": (hp3, zero_anchors, 2, 4, 2),
+        "N5_empty_slices": (hp3, anchors5, 2, 8, 3),
+        "N8651_short_last_slice": (hp3, random_anchors(8651), 2, 8, 8),
+        "M1": (hp3, anchors3, 4, 1, 1),
+        "B1": (hp3, anchors3, 1, 8, 5),
     }.items():
         gt, lab = random_gt(torch, dgen, Bt, M, nv, dev)
+        if name in gt_rows:
+            rows, best = gt_rows[name]
+            gt[:, :len(rows)] = torch.tensor(rows, device=dev)
+            require(bool((fused_iou_matching(an, gt)[2][:, :len(rows)] == best).all()),
+                    f"IoU-matching kernel: best anchor of the {name} GT is not {best}")
         w = torch.randint(-(2**31), 2**31, (Bt, 2, an.shape[0]), generator=dgen,
                           device=dev, dtype=torch.int32)
         tgt_edges[f"targets_{name}_max_abs_err"], labels_e = check_targets(
@@ -621,8 +672,10 @@ def main() -> int:
     require(tgt_edges["targets_no_gt_labels_pos_neg"][0] == 0, "positives without a GT box")
     require(tgt_edges["targets_no_negative_candidate_labels_pos_neg"][1] == 0,
             "negatives selected without a negative candidate")
+    clusters = {e: cluster_size(e) for e in ("iou_matching", "rpn_targets")}
     emit({"phase": "targets_kernel_vs_plain", "B": tb, "N": hp3.total_anchors,
           "M": int(gt3.shape[1]), "max_abs_err": tg_err, "matching_max_abs_err": mt_err,
+          "cluster": clusters,
           "tolerance": "labels and indices bit-exact, deltas rows 0-1 bit-exact, rows 2-3 rel 1e-6",
           **tgt_edges})
 
@@ -836,6 +889,9 @@ def main() -> int:
             ("proposals", lambda: fused_proposals(boxes, scores, pre, thr, topn)),
             ("targets", lambda: fused_rpn_targets(*tg_args)),
             ("iou_matching", lambda: fused_iou_matching(anchors3, gt3)),
+            # the same batch against 5 anchors: launch, staging and the two
+            # cluster barriers with next to no IoU work
+            ("iou_matching_n5", lambda: fused_iou_matching(anchors5, gt3)),
             ("nms", lambda: nms_keep(*nms_args)))}
     decided = nms_decided(torch, nms_keep(*nms_args)[0], out4, 128).float()
     rounds = torch.ceil(decided / 32)  # 32 candidates a round
@@ -890,14 +946,17 @@ def main() -> int:
          "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
          "ms": tg_ms, "device_ms": device_ms["targets"], "plain_ms": tg_plain_ms,
          "bound_ms": tg_bound, "bound_by": tg_by,
-         "library_ms": None},
+         "library_ms": None, "cluster": clusters["rpn_targets"],
+         "blocks": clusters["rpn_targets"] * tb},
         {"name": "fused_iou_matching", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:413",
          "launches": launches["matching_path"]["iou_matching"],
          "max_abs_err": mt_err, "match": "bit-exact", "ms": mt_ms,
          "device_ms": device_ms["iou_matching"], "plain_ms": mt_plain_ms,
-         "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
+         "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None,
+         "cluster": clusters["iou_matching"], "blocks": clusters["iou_matching"] * tb,
+         "device_ms_n5": device_ms["iou_matching_n5"]},
         {"name": "nms_keep", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/nms.cu",
          "replaces": "tpurpn/kernels/nms_pallas.py:191",

@@ -402,6 +402,14 @@ def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
     assert fn.launches == launches
 
 
+def test_cluster_size_names_an_entry_and_needs_the_kernels(no_nvcc):
+    with pytest.raises(ValueError, match="no CUDA entry"):
+        targets.cluster_size("targets")
+    for entry in ("iou_matching", "rpn_targets"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            targets.cluster_size(entry)
+
+
 def test_wrappers_reject_inputs_their_kernels_do_not_take(no_nvcc):
     weights, blocks = _meta_stage()
     for x in (_meta((2, 32, 32, 64)), _meta((2, 32, 32, 96), torch.bfloat16),

@@ -29,6 +29,7 @@ import tpurpn.target as j_target
 from tpurpn.kernels import target_pallas
 import tpurpn_torch
 from tpurpn_torch import target
+from tpurpn_torch.boxes import generate_iou_map
 from tpurpn_torch.kernels import targets as k_targets
 
 DELTA_RTOL = 1e-6
@@ -298,3 +299,134 @@ def test_radix_select_matches_select_by_keys(rng, name, N, density, budget):
         assert (avail < budget).all()
     if name in ("no_candidate", "k0"):
         assert not port.any()
+
+
+# csrc/targets.cu's matching phase: one cluster of C blocks an image, block r
+# owning the anchors [r*S, min((r+1)*S, N)), S = ceil(N / C), thread t taking
+# anchors t and t + 1,024 of each pass of 2,048.
+THREADS, PER_THREAD = 1024, 2
+INT_MAX = np.iinfo(np.int32).max
+
+
+def _take_max(v, i, ov, oi):
+    """The kernel's take_max, elementwise: the larger IoU (floats compare as
+    floats, so -0 == +0), then the lower anchor index."""
+    take = (ov > v) | ((ov == v) & (oi < i))
+    return np.where(take, ov, v), np.where(take, oi, i)
+
+
+def _pair_keys(v, i, canonical=True):
+    """The kernel's pair_key: the IoU's bits above the complemented index, 0
+    where the pair is the empty (-1, INT_MAX). Zero is keyed as +0 unless
+    ``canonical`` is False (the fault the kernel avoids)."""
+    w = np.where(v == 0, np.float32(0), v).astype(np.float32) if canonical else v
+    key = (w.view(np.uint32).astype(np.uint64) << np.uint64(32)) | (
+        ~i.astype(np.uint32)).astype(np.uint64)
+    return np.where(v >= 0, key, np.uint64(0))
+
+
+def _cluster_matching_model(iou, C, canonical=True):
+    """csrc/targets.cu's iou_phase on one image's (N, M) f32 IoU map, in the
+    kernel's order: per anchor the running max over the GTs in order (strict
+    >, the first maximum); per GT, each thread's pair (over its two anchors
+    by strict >) meets the warp's in the butterfly (offsets 16 ... 1), each
+    warp's pair enters the block's 64-bit key by max, pass after pass, and
+    the cluster takes the max of its C blocks' keys. An empty slice keeps
+    key 0."""
+    N, M = iou.shape
+    merged = np.full(N, -1.0, np.float32)
+    best_gt = np.zeros(N, np.int32)
+    for m in range(M):
+        better = iou[:, m] > merged
+        merged = np.where(better, iou[:, m], merged)
+        best_gt = np.where(better, m, best_gt)
+    S = -(-N // C)
+    block_keys = np.zeros((C, M), np.uint64)
+    for r in range(C):
+        lo, hi = min(r * S, N), min(r * S + S, N)
+        for base in range(lo, hi, THREADS * PER_THREAD):
+            v = np.full((THREADS, M), -1, np.float32)
+            i = np.full((THREADS, M), INT_MAX)
+            for k in range(PER_THREAD):  # a thread's anchors ascend: strict >
+                n = base + np.arange(THREADS) + k * THREADS
+                iou_k = np.where((n < hi)[:, None], iou[np.minimum(n, N - 1)], np.float32(-1))
+                better = iou_k > v
+                v, i = np.where(better, iou_k, v), np.where(better, n[:, None], i)
+            v, i = v.reshape(32, 32, M), i.reshape(32, 32, M)
+            for off in (16, 8, 4, 2, 1):
+                partner = np.arange(32) ^ off
+                v, i = _take_max(v, i, v[:, partner], i[:, partner])
+            warp_keys = _pair_keys(v[:, 0], i[:, 0], canonical)  # (warps, M)
+            block_keys[r] = np.maximum(block_keys[r], warp_keys.max(axis=0))
+    best_anchor = (~block_keys.max(axis=0).astype(np.uint32)).astype(np.int32)
+    return merged, best_gt, best_anchor
+
+
+def _random_anchors(rng, n, y0=0.0):
+    yx = rng.uniform(0, 0.8, (n, 2)) * [1 - y0, 1] + [y0, 0]
+    return np.concatenate([yx, yx + rng.uniform(0.02, 0.2, (n, 2))], 1).astype(np.float32)
+
+
+def _matching_case(name, rng):
+    """(anchors (N, 4), gt (B, M, 4)) f32 of a named edge of the cluster
+    matching."""
+    _, thp = hp_pair()
+    grid = tpurpn_torch.generate_anchors(thp).numpy()  # 900 anchors
+    if name in ("N5", "N37", "N16390_two_passes"):
+        return _random_anchors(rng, int(name[1:].split("_")[0])), random_gt(rng, 2, 8, 3)[0]
+    if name == "ties_across_slices":
+        anchors = grid.copy()
+        for k in range(1, 16):  # copies of anchor 3 in later slices, C = 8 and 16
+            anchors[k * 57 + 5] = anchors[3]
+        gt = random_gt(rng, 2, 8, 3)[0]
+        gt[:, 0] = anchors[3]  # IoU 1 at anchor 3 and at each copy
+        return anchors, gt
+    if name == "signed_zero_ious":
+        # anchors ending at y2 = -0.0 touch a GT starting at y1 = +0.0: IoU
+        # -0 in the plain version's map; the rest lie below y = 0.5, +0
+        anchors = _random_anchors(rng, 900, y0=0.5)
+        anchors[1::7] = (-0.5, 0.1, -0.0, 0.3)
+        gt = np.zeros((2, 4, 4), np.float32)
+        gt[:, 0] = (0.0, 0.1, 0.2, 0.3)
+        gt[:, 1] = (5.0, 5.0, 6.0, 6.0)  # disjoint from every anchor
+        return anchors, gt
+    if name == "all_padding":
+        return grid, np.zeros((2, 8, 4), np.float32)
+    M, n_valid = {"M64": (64, 20), "M300_two_gt_chunks": (300, 40)}[name]
+    return grid, random_gt(rng, 2, M, n_valid)[0]
+
+
+MATCHING_CASES = ["ties_across_slices", "signed_zero_ious", "all_padding", "M64",
+                  "M300_two_gt_chunks", "N5", "N37", "N16390_two_passes"]
+
+
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("name", MATCHING_CASES)
+def test_cluster_matching_model_matches_tpurpn(rng, name, C):
+    """The kernel's per-slice partials and their merge give tpurpn's
+    iou_matching bit for bit, the best anchor of a tie the lowest index
+    across slice boundaries, and an empty slice changes nothing."""
+    anchors, gt = _matching_case(name, rng)
+    iou = generate_iou_map(torch.from_numpy(anchors)[None], torch.from_numpy(gt)).numpy()
+    got = [np.stack(x) for x in zip(*(_cluster_matching_model(iou[b], C) for b in range(len(gt))))]
+    ref = j_target.iou_matching(jnp.asarray(anchors), jnp.asarray(gt))
+    plain = k_targets.fused_iou_matching(torch.from_numpy(anchors), torch.from_numpy(gt))
+    for g, r, p in zip(got, ref, plain):
+        np.testing.assert_array_equal(g, np.asarray(r))
+        np.testing.assert_array_equal(g, p.numpy())
+    N, S = len(anchors), -(-len(anchors) // C)
+    if name == "ties_across_slices":
+        ones = np.flatnonzero(iou[0, :, 0] == 1)
+        assert ones[0] == 3 and (ones // S).max() == C - 1  # a copy in the last slice
+        assert (got[2][:, 0] == 3).all()
+    if name == "signed_zero_ious":
+        # -0 after +0 in the touching GT's column: keyed by raw bits, a
+        # warp's -0 would beat anchor 0; keyed as +0, the lowest index wins
+        assert np.signbit(iou[:, 1, 0]).all() and not np.signbit(iou[:, 0, 0]).any()
+        assert (iou[:, :, :2] == 0).all() and (got[2] == 0).all()
+        assert _cluster_matching_model(iou[0], C, canonical=False)[2][0] != 0
+    if name == "all_padding":
+        assert (got[2] == 0).all() and (got[1] == 0).all()
+    if name.startswith("N"):
+        assert N % C and (N < C) == (name == "N5")
+        assert (S > THREADS * PER_THREAD) == (name == "N16390_two_passes" and C == 8)

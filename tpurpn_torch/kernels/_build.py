@@ -46,6 +46,7 @@ SIGNATURES = {
         "iou_matching": (P, P, P, P, P, I, I, I, P),
         "rpn_targets": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, I, I,
                         F, F, F, F, P),
+        "targets_cluster_size": (I,),
     },
     "nms": {
         "nms_keep": (P, P, P, P, P, P, I, I, I, I, I, F, P),

@@ -3,15 +3,24 @@
 ``fused_iou_matching``).
 
 On CUDA tensors both wrappers launch the hand-written kernels in
-``csrc/targets.cu`` (its source note says what bounds them and how they are
-laid out); on CPU tensors they run their plain versions,
+``csrc/targets.cu``; on CPU tensors they run their plain versions,
 ``target.rpn_targets_plain`` and ``target.iou_matching_plain``. There is no
-fallback: CUDA tensors the kernels do not take raise.
+fallback: CUDA tensors the kernels do not take raise, and so does a card on
+which no thread-block cluster of 8 or 16 blocks schedules.
+
+Both kernels share one IoU-matching phase, run by one cluster of C blocks an
+image (grid (C, B), one launch a call): each block takes a contiguous slice
+of the anchors, and the per-GT best anchors of the C slices meet through
+distributed shared memory. :func:`cluster_size` reports the C an entry
+launches with (chosen by an occupancy query at its first call on a device).
+Rank 0 of each target cluster then selects and encodes for the whole image.
+The source note of ``csrc/targets.cu`` says what bounds them.
 
 Exactness, as the plain versions on the same words: matching indices,
-merged IoU and labels bit for bit; delta rows 0-1 (divisions) bit for bit;
-rows 2-3 go through ``logf``, which may round one ulp away from torch's
-``log``, so they agree at rel 1e-6.
+merged IoU and labels bit for bit (ties to the lowest anchor index across
+slices); delta rows 0-1 (divisions) bit for bit; rows 2-3 go through
+``logf``, which may round one ulp away from torch's ``log``, so they agree
+at rel 1e-6.
 """
 
 from __future__ import annotations
@@ -23,6 +32,21 @@ import torch
 from . import _build
 from ..config import HyperParams
 from ..target import _lane_bits_for, iou_matching_plain, rpn_targets_plain
+
+
+_ENTRIES = ("iou_matching", "rpn_targets")  # the C library's entry numbers
+
+
+def cluster_size(entry: str) -> int:
+    """Blocks a cluster (one cluster an image) of the CUDA entry ``entry``,
+    "iou_matching" or "rpn_targets", on the current CUDA device. Raises
+    when no cluster size schedules there."""
+    if entry not in _ENTRIES:
+        raise ValueError(f"no CUDA entry {entry!r}: one of {_ENTRIES}")
+    lib = _build.load("targets")
+    c = lib.targets_cluster_size(_ENTRIES.index(entry))
+    _build.check(lib, "targets", max(-c, 0))
+    return c
 
 
 def _check_boxes(anchors: torch.Tensor, gt_boxes: torch.Tensor, name: str):
