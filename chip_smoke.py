@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py [--seed N] [--batch 128]
 
-Drives three paths of the port through the entry points a user calls, each
+Drives the paths of the port through the entry points a user calls, each
 with every kernel's launch count set to 0 just before it and read just
 after: the MobileNetV2 serving path at full width (500x500 images, batch
 128, seeded random weights with perturbed BatchNorm statistics, folded); the
 training step of VGG16 and of MobileNetV2 (500x500, batch 8, SyntheticVOC
-375x500 frames, augment on, seeded random weights); and the standalone
-batched NMS at BASELINE config 4 (top-2000 -> 300 at batch 32), with the IoU
-matching entry beside it. It checks them:
+375x500 frames, augment on, seeded random weights); the standalone batched
+NMS at BASELINE config 4 (top-2000 -> 300 at batch 32), with the IoU
+matching entry beside it; the predictor CLI on the committed trained
+weights and the trained weights served; and the trainer CLI. It checks
+them:
 
 1. builds the port's CUDA kernels from ``tpurpn_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
@@ -58,6 +60,28 @@ matching entry beside it. It checks them:
    of each end-to-end run, of each kernel wrapper and of the NMS wrapper
    gives the card's busy time and idle share.
 
+7. builds the native batch generator (``tpurpn_torch/native``, g++; its
+   version and build seconds in the ``setup`` line), times a batch of 128
+   375x500 frames, holds its bytes to the crc32 of
+   ``tpurpn.native``'s (NATIVE_CRC_SEED1) and checks that two calls agree;
+8. runs the predictor CLI (``cli.predictor_main``) on the committed trained
+   weights (``trained/rpn_mobilenet_v2_trained.npz``) over the 256 test
+   frames at batch 128, with ``--fast`` and without, with the launch counts
+   set to 0 just before each: the IR stage launches 7 times a batch with
+   ``--fast``, the proposal kernel once a batch; recall@300 within 0.01 of
+   ``tpurpn``'s on the same frames (REF_RECALL_TEST); the PNG it draws is
+   read back;
+9. serves the trained, folded weights on 128 validation frames (bf16,
+   ``fast=True``): ms per batch, the proposal walk's length and the NMS
+   rounds on the top-2000 of 32 images, beside the random weights' (the
+   kernels held against their plain versions on these candidates too);
+10. runs the trainer CLI (``cli.trainer_main``, MobileNetV2 at 500x500,
+   batch 8, 5 steps, recall every epoch) into a temporary directory: one
+   target-kernel launch per train step and per validation-loss batch, the
+   checkpoint written, and the predictor CLI on that checkpoint.
+h5py, PIL and tensorboardX are reported in the ``setup`` line and then
+blocked for the run: no check depends on them.
+
 Output: the card's name and power limit (``nvidia-smi``), JSON lines of
 measurements, one ``{"kernels": [...]}`` line, and last the line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -69,12 +93,22 @@ convolutions, so f32 plain versions run in full f32.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
+import io
 import json
 import math
+import os
+import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from dataclasses import replace
+from pathlib import Path
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth. A bound is the larger of bytes / bandwidth and of
@@ -85,6 +119,21 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS = 14  # f32 operations of one IoU test (4 min/max, 4 sub, 3 max, mul, add, div)
 TOL_REL = 0.02
+REPO = Path(__file__).resolve().parent
+TRAINED_NPZ = REPO / "trained" / "rpn_mobilenet_v2_trained.npz"
+# crc32 of tpurpn.native.generate_batch(1, indices 0-7, 375, 500, 8, 1, 20):
+# images, boxes and labels chained (tests/test_torch_data.py asserts it
+# against tpurpn).
+NATIVE_CRC_SEED1 = 0x1C68A8F8
+# tpurpn's recall@300 on the 256 test frames (SyntheticVOC seed 2, native)
+# with the trained weights, on the CPU:
+#   python rpn_predictor.py --backbone mobilenet_v2 \
+#       --weights trained/rpn_mobilenet_v2_trained.h5 --batch-size 16
+# (the same 256 frames as at batch 128, in batches the CPU holds at a few
+# GB) printed "proposal recall@300 (IoU>=0.5): 0.8287 over 6234 GT boxes".
+REF_RECALL_TEST, REF_GT_TEST, RECALL_TOL = 0.8287, 6234, 0.01
+OPTIONAL = ("h5py", "PIL", "tensorboardX")
+RECALL_LINE = re.compile(r"proposal recall@(\d+) \(IoU>=0\.5\): ([0-9.]+) over (\d+) GT boxes")
 
 
 def emit(obj) -> None:
@@ -432,6 +481,163 @@ def train_phase(torch, backbone, args, dev, kernels, steps=5):
     return phase, timing, launches
 
 
+def run_cli(main, argv, cwd):
+    """Run a CLI entry point in process from ``cwd``; returns what it printed."""
+    buf = io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    print(text, file=sys.stderr, end="", flush=True)
+    return text
+
+
+def read_recall(text):
+    m = RECALL_LINE.search(text)
+    require(m is not None, f"no recall line in the predictor's output: {text[-500:]!r}")
+    return int(m.group(1)), float(m.group(2)), int(m.group(3))
+
+
+def read_png(path):
+    """Decode the 8-bit RGB PNG the port writes (one or more IDAT chunks,
+    filter byte 0 on every row) into (H, W, 3) bytes, checking the chunk
+    CRCs."""
+    data = Path(path).read_bytes()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, dims = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        require(crc == zlib.crc32(kind + body) & 0xFFFFFFFF, f"{path}: bad {kind} CRC")
+        if kind == b"IHDR":
+            dims = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    require(dims is not None and dims[2:4] == (8, 2), f"{path}: not 8-bit RGB: {dims}")
+    w, h = dims[0], dims[1]
+    rows = zlib.decompress(idat)
+    require(len(rows) == h * (1 + 3 * w), f"{path}: {len(rows)} bytes for {w}x{h}")
+    import numpy as np
+
+    pix = np.frombuffer(rows, np.uint8).reshape(h, 1 + 3 * w)
+    require(not pix[:, 0].any(), f"{path}: filtered rows")
+    return pix[:, 1:].reshape(h, w, 3)
+
+
+def native_build(native):
+    """Build the native generator with g++; its version and the seconds."""
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    prebuilt = native.library_path().exists()
+    t0 = time.perf_counter()
+    require(native.available(), "the native generator did not build")
+    return {"gxx": gxx, "prebuilt": prebuilt, "build_s": time.perf_counter() - t0,
+            "library": native.library_path().name}
+
+
+def native_loader_phase(native):
+    """Time a batch of 128 375x500 frames of the native generator, hold its
+    bytes to tpurpn's and check two calls agree."""
+    import numpy as np
+
+    idx = np.arange(128)
+    native.generate_batch(1, idx, 375, 500, 8, 1, 20)  # warm: page in the buffers
+    t0 = time.perf_counter()
+    a = native.generate_batch(1, idx, 375, 500, 8, 1, 20)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    b = native.generate_batch(1, idx, 375, 500, 8, 1, 20)
+    require(all(np.array_equal(x, y) for x, y in zip(a, b)), "native batches differ between calls")
+    crc = 0
+    for x in native.generate_batch(1, idx[:8], 375, 500, 8, 1, 20):
+        crc = zlib.crc32(np.ascontiguousarray(x).tobytes(), crc)
+    require(crc == NATIVE_CRC_SEED1,
+            f"native bytes crc32 {crc:#x} != tpurpn's {NATIVE_CRC_SEED1:#x}")
+    for x, y in zip(native.generate_batch(1, idx[:8], 375, 500, 8, 1, 20), a):
+        require(np.array_equal(x, y[:8]), "a batch's first 8 frames differ from the 8 alone")
+    return {"phase": "native_loader", "cpu_count": os.cpu_count(), "batch": 128, "raw": [375, 500], "batch_ms_host": batch_ms,
+            "img_per_s_host": 128 / batch_ms * 1e3, "crc32_seed1_0_7": f"{crc:#010x}",
+            "deterministic": True}
+
+
+def predictor_trained_phase(torch, kernels, cli, batch, tmp):
+    """The predictor CLI on the trained weights over the 256 test frames,
+    with --fast and without: launches, recall against tpurpn's, the PNG."""
+    out = {"phase": "predictor_trained", "weights": str(TRAINED_NPZ.relative_to(REPO)),
+           "frames": "SyntheticVOC test (seed 2), native", "max_boxes": 64, "batch": batch,
+           "ref_recall": REF_RECALL_TEST, "tolerance": RECALL_TOL}
+    batches = 256 // batch
+    for fast in (True, False):
+        name = "fast" if fast else "plain_backbone"
+        png = Path(tmp) / "proposals_mobilenet_v2.png"
+        if png.exists():
+            png.unlink()
+        reset(kernels)
+        t0 = time.perf_counter()
+        text = run_cli(cli.predictor_main,
+                       ["--backbone", "mobilenet_v2", "--weights", str(TRAINED_NPZ),
+                        "--batch-size", str(batch), "--output-dir", str(tmp)]
+                       + (["--fast"] if fast else []),
+                       tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        topn, recall, n_gt = read_recall(text)
+        require("ignoring" not in text, f"predictor dropped --fast: {text[-300:]!r}")
+        require(launches["ir_stage"] == (7 * batches if fast else 0)
+                and launches["proposals"] == batches and launches["targets"] == 0,
+                f"predictor ({name}) launches {launches}")
+        require(topn == 300 and n_gt == REF_GT_TEST, f"predictor ({name}): {n_gt} GT boxes")
+        require(abs(recall - REF_RECALL_TEST) <= RECALL_TOL,
+                f"predictor ({name}) recall {recall} vs tpurpn's {REF_RECALL_TEST}")
+        pixels = read_png(png)
+        red = int((pixels == (255, 40, 40)).all(-1).sum())
+        require(pixels.shape == (500, 500, 3) and red > 0,
+                f"predictor ({name}) PNG {pixels.shape}, {red} outline pixels")
+        out[name] = {"recall": recall, "gt": n_gt, "launches": launches, "wall_s": wall,
+                     "png": list(pixels.shape), "png_outline_pixels": red}
+    return out
+
+
+def trainer_cli_phase(torch, kernels, cli, data, batch, tmp):
+    """The trainer CLI for 5 steps with recall every epoch, then the
+    predictor CLI on its checkpoint."""
+    steps, bs = 5, 8
+    val_batches = len(data.get_dataset("synthetic", "validation")) // bs
+    reset(kernels)
+    t0 = time.perf_counter()
+    text = run_cli(cli.trainer_main,
+                   ["--backbone", "mobilenet_v2", "--img-size", "500", "--batch-size", str(bs),
+                    "--epochs", "1", "--steps-per-epoch", str(steps), "--eval-recall-every", "1",
+                    "--output-dir", str(Path(tmp) / "trained")], tmp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    ckpt = Path(tmp) / "trained" / "rpn_mobilenet_v2"
+    require((ckpt / "state.pt").is_file(), f"no checkpoint at {ckpt}")
+    require("saved best checkpoint" in text and "val_recall@300=" in text,
+            f"trainer output: {text[-400:]!r}")
+    require(launches["targets"] == steps + val_batches,
+            f"trainer: {launches['targets']} target launches for {steps} steps + {val_batches} "
+            "validation batches")
+    require(launches["proposals"] == val_batches, f"trainer recall launches {launches}")
+    epoch = re.search(r"loss=([0-9.naninf]+) val_loss=([0-9.]+) val_recall@300=([0-9.]+)", text)
+    require(epoch is not None and math.isfinite(float(epoch.group(1))),
+            f"trainer epoch line: {text[-400:]!r}")
+    reset(kernels)
+    ptext = run_cli(cli.predictor_main, ["--backbone", "mobilenet_v2", "--weights", str(ckpt),
+                                         "--batch-size", str(batch), "--output-dir", str(tmp)], tmp)
+    torch.cuda.synchronize()
+    _, recall, n_gt = read_recall(ptext)
+    require("restored checkpoint" in ptext and n_gt == REF_GT_TEST, f"predictor: {ptext[-300:]!r}")
+    return {"phase": "trainer_cli", "steps": steps, "batch": bs, "val_batches": val_batches,
+            "launches": launches, "loss": float(epoch.group(1)), "val_loss": float(epoch.group(2)),
+            "val_recall": float(epoch.group(3)), "wall_s": wall,
+            "checkpoint_bytes": (ckpt / "state.pt").stat().st_size,
+            "predictor_on_checkpoint": {"recall": recall, "gt": n_gt,
+                                        "launches": counts(kernels)}}
+
+
 def check_proposals(torch, out, B, topn) -> None:
     boxes, scores, nv = out["roi_boxes"], out["roi_scores"], out["num_valid"]
     require(boxes.shape == (B, topn, 4) and scores.shape == (B, topn)
@@ -475,14 +681,24 @@ def main() -> int:
     from tpurpn_torch.predict import decode_outputs, make_predict_fn
     from tpurpn_torch.anchors import generate_anchors
     from tpurpn_torch.backbones.mobilenet_v2 import relu6
+    from tpurpn_torch import cli, data, native
+    from tpurpn_torch.eval import proposal_recall
+    from tpurpn_torch.io_utils import load_keras_h5_weights
 
     smi = nvidia_smi()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # which optional packages this machine has; then none of them may be
+    # imported by what follows (a check must not depend on them)
+    optional = {m: importlib.util.find_spec(m) is not None for m in OPTIONAL}
+    for m in OPTIONAL:
+        sys.modules[m] = None
     emit({"phase": "setup", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "optional_packages": optional,
+          "native_build": native_build(native),
           "tf32_matmul": False, "tf32_cudnn": False, "seed": args.seed,
           "batch": args.batch})
 
@@ -494,6 +710,7 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for n in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit(native_loader_phase(native))
 
     # the model: seeded random weights, BN statistics perturbed, then folded
     B = args.batch
@@ -915,6 +1132,83 @@ def main() -> int:
     emit({"phase": "proposals_ms", "batch": B, "pre": pre, "topn": topn, "nvidia_smi": smi,
           "sort": sort_ms, "select_kernel": select_ms, "wrapper": pr_ms,
           "visited_mean": float(visited.float().mean()), "visited_max": int(visited.max())})
+
+    # 5. the CLIs and the trained weights, each with every count at 0 first
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    predictor = predictor_trained_phase(torch, kernels, cli, B, tmp)
+    launches["predictor_cli"] = predictor["fast"]["launches"]
+    emit(predictor)
+
+    # the trained, folded weights served on 128 validation frames (seed 1)
+    trained = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device=dev)
+    _, missing = load_keras_h5_weights(str(TRAINED_NPZ), trained)
+    require(missing == [], f"trained weights miss {missing}")
+    trained = fold_batch_norm(trained)
+    val_u8, val_boxes, val_labels = (torch.from_numpy(a).to(dev) for a in next(
+        data.get_dataset("synthetic", "validation").batches(B)))
+    val_x, val_b = preprocess_batch(val_u8, val_boxes, hp.img_size, dtype=torch.bfloat16)
+    predict_t = make_predict_fn(trained, hp, fast=True, device=dev)
+    reset(kernels)
+    out_t = predict_t(val_x)
+    torch.cuda.synchronize()
+    launches["serving_trained"] = counts(kernels)
+    require(launches["serving_trained"]["ir_stage"] == 7
+            and launches["serving_trained"]["proposals"] == 1,
+            f"trained serving launches {launches['serving_trained']}")
+    check_proposals(torch, out_t, B, topn)
+    rec_t = proposal_recall(out_t["roi_boxes"], out_t["num_valid"], val_b, val_labels)
+    with torch.no_grad():
+        reg_t, cls_t = fast_mobilenet_forward(trained, val_x)
+        boxes_t, scores_t = decode_outputs(anchors, reg_t, cls_t, hp)
+        pk, pp = (fused_proposals(boxes_t, scores_t, pre, thr, topn),
+                  fused_proposals_plain(boxes_t, scores_t, pre, thr, topn))
+        for k in pp:
+            require(torch.equal(pk[k], pp[k]), f"proposal kernel vs plain on trained scores: {k}")
+        for k in pk:
+            require(torch.equal(pk[k], out_t[k]), f"trained serving differs from its kernel in {k}")
+        ms_t = time_ms(torch, lambda: predict_t(val_x), 5)
+        busy_t, ops_t = device_profile(torch, lambda: predict_t(val_x))
+    _, _, visited_t = proposal_bound(torch, boxes_t, scores_t, pre, topn, thr)
+    top_t = top_candidates(scores_t[:nb], n4)
+    boxes4_t = torch.gather(boxes_t[:nb], 1, top_t[..., None].expand(-1, -1, 4)).contiguous()
+    scores4_t = torch.gather(scores_t[:nb], 1, top_t)
+    cnt4_t, _ = check_nms(torch, nms_keep, nms_keep_plain, (boxes4_t, valid4, thr4, out4),
+                          "trained config 4")
+    sel_t, nv_t = batched_non_max_suppression(boxes4_t, scores4_t, out4, thr4)
+    ref_sel_t, ref_nv_t = batched_non_max_suppression(boxes4_t, scores4_t, out4, thr4,
+                                                      use_kernel=False)
+    require(torch.equal(sel_t, ref_sel_t) and torch.equal(nv_t, ref_nv_t),
+            "batched_non_max_suppression on trained scores: kernel and plain routes differ")
+    decided_t = nms_decided(torch, nms_keep(boxes4_t, valid4, thr4, out4)[0], out4, 128).float()
+    rounds_t = torch.ceil(decided_t / 32)
+    e2e_random = e2e["fast_bf16"]
+    emit({"phase": "serving_trained", "batch": B, "max_boxes": 8,
+          "frames": "SyntheticVOC validation (seed 1), native",
+          "dtype": "bfloat16", "nvidia_smi": smi, "launches": launches["serving_trained"],
+          "recall": float(rec_t["recall"]), "gt": int(rec_t["num_gt"]),
+          "num_valid_min": int(out_t["num_valid"].min()),
+          "num_valid_mean": float(out_t["num_valid"].float().mean()),
+          "ms_per_batch": ms_t, "img_per_s": B / ms_t * 1e3, "device_busy_ms": busy_t,
+          "device_ops": ops_t,
+          "random_weights_ms_per_batch": e2e_random["ms_per_batch"],
+          "random_weights_img_per_s": e2e_random["img_per_s"],
+          "visited_mean": float(visited_t.float().mean()), "visited_max": int(visited_t.max()),
+          "random_weights_visited_mean": float(visited.float().mean()),
+          "random_weights_visited_max": int(visited.max()),
+          "config4_kept_min": int(cnt4_t.min()), "config4_kept_max": int(cnt4_t.max()),
+          "config4_num_valid_min": int(nv_t.min()),
+          "config4_decided_mean": float(decided_t.mean()),
+          "config4_decided_max": int(decided_t.max()),
+          "config4_rounds_mean": float(rounds_t.mean()), "config4_rounds_max": int(rounds_t.max()),
+          "random_weights_config4_decided_mean": float(decided.mean()),
+          "random_weights_config4_decided_max": int(decided.max()),
+          "random_weights_config4_rounds_mean": float(rounds.mean()),
+          "random_weights_config4_rounds_max": int(rounds.max())})
+
+    trainer = trainer_cli_phase(torch, kernels, cli, data, B, tmp)
+    launches["trainer_cli"] = trainer["launches"]
+    emit(trainer)
+
     tg_bound, tg_by = targets_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     mt_bound, mt_by = matching_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     nms_bd, nms_by = nms_bound(torch, nms_keep(*nms_args)[0], valid4, out4, 128)
@@ -924,6 +1218,8 @@ def main() -> int:
          "replaces": "tpurpn/kernels/ir_stage_pallas.py:259",
          "launches": launches["bf16"]["ir_stage"],
          "launches_uint8": launches["uint8"]["ir_stage"],
+         "launches_predictor_cli": launches["predictor_cli"]["ir_stage"],
+         "launches_serving_trained": launches["serving_trained"]["ir_stage"],
          "max_abs_err": ir_err, "match": "bf16 tolerance", "ms": ir_ms,
          "device_ms": device_ms["ir_stage"],
          "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by,
@@ -933,6 +1229,8 @@ def main() -> int:
          "replaces": "tpurpn/kernels/proposal_pallas.py:352",
          "launches": launches["bf16"]["proposals"],
          "launches_uint8": launches["uint8"]["proposals"],
+         "launches_predictor_cli": launches["predictor_cli"]["proposals"],
+         "launches_trainer_cli": launches["trainer_cli"]["proposals"],
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
          "device_ms": device_ms["proposals"],
          "select_ms": select_ms, "sort_ms": sort_ms,
@@ -943,6 +1241,7 @@ def main() -> int:
          "replaces": "tpurpn/kernels/target_pallas.py:355",
          "launches": launches["vgg16"]["targets"],
          "launches_mobilenet_v2": launches["mobilenet_v2"]["targets"],
+         "launches_trainer_cli": launches["trainer_cli"]["targets"],
          "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
          "ms": tg_ms, "device_ms": device_ms["targets"], "plain_ms": tg_plain_ms,
          "bound_ms": tg_bound, "bound_by": tg_by,
@@ -966,6 +1265,7 @@ def main() -> int:
          "plain_ms": nms_plain_ms,
          "bound_ms": nms_bd, "bound_by": nms_by, "library_ms": None},
     ]})
+    shutil.rmtree(tmp, ignore_errors=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

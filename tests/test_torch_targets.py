@@ -430,3 +430,48 @@ def test_cluster_matching_model_matches_tpurpn(rng, name, C):
     if name.startswith("N"):
         assert N % C and (N < C) == (name == "N5")
         assert (S > THREADS * PER_THREAD) == (name == "N16390_two_passes" and C == 8)
+
+
+# The first rpn_targets_plain call of a fresh process once read 74 delta
+# values ~1e-4 (relative) away from later calls (config 3, without a
+# torch.set_num_threads call first). This is the repro: config 3 (VGG16
+# anchors N = 8,649, B = 8, M = 8, seeded GTs and words) in a new
+# interpreter, the first call against the second and third, bit for bit.
+_FIRST_CALL_REPRO = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {repo!r})
+from tpurpn_torch import generate_anchors, get_hyper_params
+from tpurpn_torch.target import rpn_targets_plain
+hp = get_hyper_params("vgg16")
+anchors = generate_anchors(hp, "cpu")
+rng = np.random.default_rng(0)
+yx = rng.uniform(0, 0.6, (8, 8, 2))
+hw = rng.uniform(0.1, 0.35, (8, 8, 2))
+gt = torch.from_numpy(np.concatenate([yx, np.minimum(yx + hw, 1.0)], -1).astype(np.float32))
+labels = torch.ones((8, 8), dtype=torch.int32)
+bits = torch.from_numpy(
+    rng.integers(-2**31, 2**31, (8, 2, hp.total_anchors), dtype=np.int64).astype(np.int32))
+outs = [rpn_targets_plain(anchors, gt, labels, bits, hp) for _ in range(3)]
+diff = [int((outs[0][0] != o[0]).sum() + (outs[0][1] != o[1]).sum()) for o in outs[1:]]
+print(hp.total_anchors, torch.get_num_threads(), diff)
+sys.exit(1 if any(diff) else 0)
+"""
+
+
+@pytest.mark.parametrize("threads", [None, "1", "2", "4"])
+def test_first_plain_targets_call_matches_later_calls(threads):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env.pop("OMP_NUM_THREADS", None)
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = threads
+    r = subprocess.run([sys.executable, "-c", _FIRST_CALL_REPRO.format(repo=repo)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+    assert r.stdout.split()[0] == "8649"

@@ -375,9 +375,12 @@ def test_eval_loss_matches_tpurpn():
 def test_synthetic_voc_and_batch_walk_match_tpurpn():
     ref_ds = j_data.SyntheticVOC(num_samples=6, raw_h=40, raw_w=56, seed=3)
     ds = data.SyntheticVOC(num_samples=6, raw_h=40, raw_w=56, seed=3)
-    for got, ref in zip(ds.batches(2, shuffle=5), ref_ds.batches(2, shuffle=5, native=False)):
-        for g, r in zip(got, ref):
-            np.testing.assert_array_equal(g, r)
+    # both packages' defaults (the native generator) and their Python samplers
+    for native in (None, False):
+        for got, ref in zip(ds.batches(2, shuffle=5, native=native),
+                            ref_ds.batches(2, shuffle=5, native=native)):
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(g, r)
     walk = data.batch_index_iter(7, 3, repeat=True, shuffle=1)
     ref_walk = j_data.batch_index_iter(7, 3, repeat=True, shuffle=1)
     for _ in range(5):

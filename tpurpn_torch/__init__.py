@@ -14,7 +14,12 @@ selection, preprocess, ``make_predict_fn``); the single-GPU training step
 for both backbones (VGG16, target assignment with the fused target kernel,
 losses, ``SyntheticVOC``, ``make_train_step`` with exact gradient
 accumulation, ``make_eval_loss_fn``); and the standalone NMS kernel behind
-``batched_non_max_suppression``.
+``batched_non_max_suppression``; proposal recall (``eval``), Keras ``.h5``
+weights and checkpoints (``io_utils``), the datasets and the native batch
+generator (``data``, ``native``), drawing, profiling, and the single-device
+trainer and predictor CLIs (``cli``; ``rpn_trainer_torch.py``,
+``rpn_predictor_torch.py``). Not ported yet: the multi-device and
+device-resident scanned training (``make_scan_train_steps``).
 """
 
 from .config import HyperParams, feature_map_shape_for, get_hyper_params
@@ -29,6 +34,7 @@ from .boxes import (
     non_max_suppression,
     normalize_bboxes,
 )
+from .eval import proposal_recall
 from .model import fold_batch_norm, get_model, init_model
 from .predict import make_predict_fn
 from .target import calculate_rpn_actual_outputs, target_rand_bits
@@ -38,7 +44,11 @@ from .train import (
     default_optimizer,
     make_eval_loss_fn,
     make_train_step,
+    get_step_size,
+    rpn_generator,
 )
+
+__version__ = "0.6.0"
 
 __all__ = [
     "HyperParams",
@@ -65,4 +75,8 @@ __all__ = [
     "default_optimizer",
     "make_train_step",
     "make_eval_loss_fn",
+    "rpn_generator",
+    "get_step_size",
+    "proposal_recall",
+    "__version__",
 ]

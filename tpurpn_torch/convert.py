@@ -69,12 +69,20 @@ def from_flax_variables(hp: HyperParams, variables_np, device=None) -> RPN:
     folded one; VGG16 has no BatchNorm either way."""
     has_bn = any(_is_bn(path[-2]) for path, _ in _flatten(variables_np["params"]))
     model = RPN(hp, fold_bn=hp.backbone == "mobilenet_v2" and not has_bn)
+    return to_device(load_flax_variables(model, variables_np), device)
+
+
+@torch.no_grad()
+def load_flax_variables(model: RPN, variables_np) -> RPN:
+    """Copy a ``tpurpn`` variable tree (numpy leaves, the same layout as
+    ``to_flax_numpy(model)``) into ``model`` in place: its parameters keep
+    their identity and device, so an optimizer built on them stays valid."""
     sd = flax_to_state_dict(variables_np)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd[k] = v
     model.load_state_dict(sd, strict=True)
-    return to_device(model, device)
+    return model
 
 
 _FLAX_PARAM = {"weight": "kernel", "bias": "bias"}
