@@ -78,9 +78,38 @@ them:
 10. runs the trainer CLI (``cli.trainer_main``, MobileNetV2 at 500x500,
    batch 8, 5 steps, recall every epoch) into a temporary directory: one
    target-kernel launch per train step and per validation-loss batch, the
-   checkpoint written, and the predictor CLI on that checkpoint.
+   checkpoint written, and the predictor CLI on that checkpoint;
+11. ``device_data_train``: per backbone, ``make_scan_train_steps`` (8 steps
+   of batch 8 over 64 device-resident 375x500 frames, one CUDA graph of the
+   step replayed after an eager first step) against a host loop of
+   ``make_train_step`` from the same state and generator: num_pos equal,
+   losses within rel 1e-4, parameters within a tenth of the largest
+   update; ms/step of both, the replay's device busy time and idle share,
+   the target launches the counter sees (the eager step and the capture)
+   and those the card runs (a graph replay runs its launch again);
+12. ``s2d_serving``: ``make_predict_fn(fast=True, from_uint8=True)`` on
+   128 uint8 375x500 frames, random and trained weights, routed through
+   ``inference.fast_uint8_forward`` (counted), its head outputs within the
+   bf16 tolerance of ``preprocess_batch`` + ``fast_mobilenet_forward``,
+   recall@300 of the trained weights over the 256 test frames within 0.01
+   of REF_RECALL_TEST, and both routes' ms per batch;
+13. ``data_parallel``: two ranks sharing the card over gloo (spawned) take
+   the MobileNetV2 mesh step at batch 8 against one device, in f32 and in
+   bf16 (loss, parameters and running statistics within STEP_LIMITS; rank
+   0's rows stepped alone, without reduction, outside them); then one rank
+   over NCCL: the mesh step (cuDNN deterministic), eval loss and predict
+   bit for bit against one device; then the trainer CLI with
+   ``--device-data --data-parallel`` for 5 steps (its graph captured once
+   and replayed 4 times, counted on the graph).
 h5py, PIL and tensorboardX are reported in the ``setup`` line and then
 blocked for the run: no check depends on them.
+
+``python3 chip_smoke.py --ranks N`` (N GPUs on one host) builds the
+kernels and runs only the data-parallel paths over NCCL, one rank a GPU:
+the MobileNetV2 mesh step against one device on every rank (within
+STEP_LIMITS, a step without reduction outside them), the device-resident graph steps of each backbone at 8 rows a
+rank against one GPU at 8 rows (weak scaling, replayed and eager), and the
+trainer under ``python -m torch.distributed.run --standalone``.
 
 Output: the card's name and power limit (``nvidia-smi``), JSON lines of
 measurements, one ``{"kernels": [...]}`` line, and last the line
@@ -119,6 +148,15 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS = 14  # f32 operations of one IoU test (4 min/max, 4 sub, 3 max, mul, add, div)
 TOL_REL = 0.02
+# Limits of a mesh step against one device on the same global batch. f32:
+# the reduction order alone. bf16, where a rounding to bf16 moves with the
+# statistics' last bits: between the largest readings of sound runs (two
+# ranks on one card and four GPUs: loss rel 1.2e-3, parameters 2.8e-4,
+# running statistics 1.5e-4) and those of rank 0's rows stepped alone,
+# without any reduction (two ranks: 1.0e-2, 6.3e-4, 8.8e-3), which every
+# run requires to fail the parameters' and statistics' limits.
+STEP_LIMITS = {"float32": {"loss_rel": 1e-5, "params": 1e-5, "running_stats": 1e-5},
+               "bfloat16": {"loss_rel": 4e-3, "params": 4e-4, "running_stats": 4e-4}}
 REPO = Path(__file__).resolve().parent
 TRAINED_NPZ = REPO / "trained" / "rpn_mobilenet_v2_trained.npz"
 # crc32 of tpurpn.native.generate_batch(1, indices 0-7, 375, 500, 8, 1, 20):
@@ -321,6 +359,42 @@ def nms_bound(torch, keep, valid, max_output, block):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def target_executions(launches, graphs):
+    """Executions of the target kernel on the card: the counter's launches,
+    less the one each capture recorded, plus one a replay (the counter does
+    not see replays)."""
+    return launches - sum(g.captures for g in graphs) + sum(g.replays for g in graphs)
+
+
+def step_gaps(metrics, tensors, ref_metrics, ref_tensors):
+    """The loss's relative gap and the largest parameter and running
+    statistic gaps of a step (metrics, state_dict) to a reference step."""
+    gaps = {"loss_rel": abs(float(metrics["loss"]) / float(ref_metrics["loss"]) - 1.0)}
+    for k, v in ref_tensors.items():
+        if not k.endswith("num_batches_tracked"):
+            kind = "running_stats" if "running" in k else "params"
+            gaps[kind] = max(gaps.get(kind, 0.0), float((tensors[k].cpu() - v.cpu()).abs().max()))
+    return gaps
+
+
+def half_update(before, after):
+    """The parameter gap of averaging the ranks' gradients instead of summing
+    them: half the largest update (SGD's first step is -lr * gradient)."""
+    return max(0.5 * float((after[k].cpu() - v.cpu()).abs().max())
+               for k, v in before.items() if "running" not in k and not k.endswith("tracked"))
+
+
+def check_mesh_step(what, dtype, gaps, alone):
+    """The mesh step's gaps to one device within STEP_LIMITS, and those of
+    a step without reduction (``alone``: rank 0's rows stepped by
+    themselves) outside the parameters' and statistics' limits."""
+    lim = STEP_LIMITS[dtype]
+    require(all(gaps[k] <= v for k, v in lim.items()),
+            f"{what} vs one device ({dtype}): {gaps}, limits {lim}")
+    require(alone["params"] > lim["params"] and alone["running_stats"] > lim["running_stats"],
+            f"{what} ({dtype}): a step without reduction passes the limits: {alone}")
+
+
 def reset(kernels) -> None:
     for k in kernels.values():
         k.launches = 0
@@ -479,6 +553,482 @@ def train_phase(torch, backbone, args, dev, kernels, steps=5):
               "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / step_ms,
               "device_ops_per_step": device_ops, **stages}
     return phase, timing, launches
+
+
+def device_data_phase(torch, backbone, args, dev, kernels, steps=8, frames=64):
+    """``make_scan_train_steps`` (one CUDA graph of the step, replayed) over
+    a device-resident SyntheticVOC set against a host loop of
+    ``make_train_step`` from the same state and generator over the same
+    rows: num_pos equal at every step, losses within rel 1e-4 (cuDNN's
+    backward may sum with atomics), the parameters within a tenth of the
+    steps' largest update; then ms/step of each by CUDA events and the
+    replay's device busy time and idle share."""
+    from tpurpn_torch import (create_train_state, get_hyper_params, get_model, init_model,
+                              make_scan_train_steps, make_train_step)
+    from tpurpn_torch.data import SyntheticVOC
+
+    B = args.train_batch
+    hp = get_hyper_params(backbone)
+    data = tuple(torch.from_numpy(a).to(dev) for a in next(
+        SyntheticVOC(num_samples=frames, seed=args.seed).batches(frames)))
+
+    def fresh():
+        model = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device=dev)
+        return (create_train_state(hp, model=model),
+                torch.Generator(device=dev).manual_seed(args.seed + 1))
+
+    (state_a, gen_a), (state_b, gen_b) = fresh(), fresh()
+    p0 = [p.detach().clone() for p in state_a.model.parameters()]
+    step = make_train_step(hp, augment=True)
+    rows = [torch.arange(B, device=dev) + (s * B) % frames for s in range(steps)]
+
+    def host_loop():
+        return [step(state_a, *(t[r] for t in data), gen_a)[1] for r in rows]
+
+    loop = host_loop()
+    run = make_scan_train_steps(hp, augment=True, batch_size=B, num_steps=steps)
+    reset(kernels)
+    _, scan = run(state_b, gen_b, *data)
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    replays, captures = run.graph.replays, run.graph.captures
+    require(captures == 1 and replays == steps - 1,
+            f"{backbone}: {captures} captures and {replays} replays for {steps} steps")
+    executions = target_executions(launches["targets"], [run.graph])
+    require(executions == steps, f"{backbone}: {executions} target executions for {steps} steps")
+    require(launches["targets"] == 2,
+            f"{backbone}: {launches['targets']} target launches: one eager step, one capture")
+    loop_pos = [int(m["num_pos"]) for m in loop]
+    require(scan["num_pos"].tolist() == loop_pos,
+            f"{backbone}: num_pos {scan['num_pos'].tolist()} vs host loop {loop_pos}")
+    loop_loss = torch.stack([m["loss"] for m in loop])
+    loss_rel = float(((scan["loss"] - loop_loss).abs() / loop_loss.abs()).max())
+    require(loss_rel <= 1e-4, f"{backbone}: scan vs host-loop losses, rel {loss_rel}")
+    update = max(float((p.detach() - q).abs().max())
+                 for p, q in zip(state_a.model.parameters(), p0))
+    diff = max(float((p.detach() - q.detach()).abs().max())
+               for p, q in zip(state_b.model.parameters(), state_a.model.parameters()))
+    require(diff <= 0.1 * update, f"{backbone}: parameters differ by {diff} (update {update})")
+    require(state_b.step == state_a.step == steps, "steps counted")
+
+    calls = 3
+    replay_ms = time_ms(torch, lambda: run(state_b, gen_b, *data), calls, warmup=1) / steps
+    eager_ms = time_ms(torch, host_loop, calls, warmup=1) / steps
+    busy, ops = device_profile(torch, lambda: run(state_b, gen_b, *data), iters=3)
+    return {"phase": f"device_data_train_{backbone}", "batch": B, "img_size": hp.img_size,
+            "frames": frames, "dataset_mb": sum(t.numel() * t.element_size() for t in data) / 1e6,
+            "steps": steps, "num_pos": loop_pos, "losses_scan": scan["loss"].tolist(),
+            "losses_host_loop": loop_loss.tolist(), "loss_max_rel_err": loss_rel,
+            "param_max_abs_err": diff, "param_max_update": update,
+            "launches_counter": launches, "graph_captures": captures, "graph_replays": replays,
+            "targets_executions": executions,
+            "launch_note": "the Python counter sees the eager step and the capture; each "
+                           "replay runs the captured launch again: executions = "
+                           "counter - captures + replays",
+            "ms_per_step_replay": replay_ms, "ms_per_step_eager_loop": eager_ms,
+            "img_per_s_replay": B / replay_ms * 1e3,
+            "device_busy_ms_per_step": None if busy is None else busy / steps,
+            "device_ops_per_step": ops / steps,
+            "device_idle_share_replay": None if busy is None else 1.0 - busy / (replay_ms * steps)}
+
+
+def dp_problem(torch, seed, batch, dev, dtype="bfloat16"):
+    """The data-parallel phases' step: MobileNetV2 at 500x500 computing in
+    ``dtype`` from a seeded init, a SyntheticVOC batch (global) and global
+    draws from a CPU generator, the same in every process."""
+    from tpurpn_torch import create_train_state, get_hyper_params, get_model, init_model
+    from tpurpn_torch.data import SyntheticVOC
+    from tpurpn_torch.target import target_rand_bits
+
+    hp = get_hyper_params("mobilenet_v2", compute_dtype=dtype)
+    model = init_model(get_model(hp), torch.Generator().manual_seed(seed), device=dev)
+    data = tuple(torch.from_numpy(a) for a in next(
+        SyntheticVOC(num_samples=batch, seed=seed).batches(batch)))
+    g = torch.Generator().manual_seed(seed + 7)
+    flip = torch.rand((batch,), generator=g) < 0.5
+    bits = target_rand_bits(g, batch, hp.total_anchors)
+    return hp, create_train_state(hp, model=model), data, flip, bits
+
+
+def two_rank_worker(rank, store, out, seed, batch):
+    """One of two ranks sharing the card over gloo: the mesh step of
+    ``dp_problem`` in f32 and in bf16; rank 0 also steps its own rows alone
+    (no reduction), and saves the metrics and tensors of both."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from tpurpn_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        mesh = train.make_data_mesh(2, device="cuda")
+        results = {}
+        for dtype in ("float32", "bfloat16"):
+            hp, state, data, flip, bits = dp_problem(torch, seed, batch, torch.device("cuda"),
+                                                     dtype)
+            alone = copy.deepcopy(state)
+            state = train.replicate(mesh, state)
+            _, m = train.make_train_step(hp, mesh=mesh)(
+                state, *train.shard_batch(mesh, *data), flip=flip, rand_bits=bits)
+            results[dtype] = {"metrics": {k: v.cpu() for k, v in m.items()},
+                              "tensors": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+            if rank == 0:
+                rows = slice(0, batch // 2)
+                _, ma = train.make_train_step(hp)(
+                    alone, *train.shard_batch(mesh, *data), flip=flip[rows], rand_bits=bits[rows])
+                results[dtype]["alone"] = ({k: v.cpu() for k, v in ma.items()},
+                                           {k: v.cpu() for k, v in alone.model.state_dict().items()})
+        if rank == 0:
+            torch.save(results, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(torch, args, dev, kernels, cli, tmp):
+    """The mesh paths on the card: two ranks on the one card over gloo
+    (spawned) against the single-device step; the mesh step, eval loss and
+    predict over NCCL with one rank, bit for bit against one device (cuDNN
+    deterministic); then the trainer CLI with --device-data --data-parallel."""
+    import copy
+
+    import torch.multiprocessing as mp
+
+    from tpurpn_torch import make_predict_fn, train
+
+    B = args.train_batch
+    out = {"phase": "data_parallel", "batch": B, "backbone": "mobilenet_v2", "img_size": 500}
+    # 1. two ranks, gloo, CUDA tensors: the cross-rank BatchNorm on the card
+    store, result = str(Path(tmp) / "store"), str(Path(tmp) / "two_ranks.pt")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(two_rank_worker, args=(store, result, args.seed, B), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError("chip_smoke check failed: the two-rank step timed out")
+    out["two_ranks_wall_s"] = time.perf_counter() - t0
+    two = torch.load(result, weights_only=True)
+    for dtype in ("float32", "bfloat16"):
+        hp, state, data, flip, bits = dp_problem(torch, args.seed, B, dev, dtype)
+        before = copy.deepcopy(state.model.state_dict())
+        _, m = train.make_train_step(hp)(state, *data, flip=flip, rand_bits=bits)
+        got, ref = two[dtype], state.model.state_dict()
+        gaps = step_gaps(got["metrics"], got["tensors"], m, ref)
+        alone = step_gaps(*got["alone"], m, ref)
+        out[f"two_ranks_gloo_{dtype}"] = {
+            "loss": float(got["metrics"]["loss"]), "loss_single_device": float(m["loss"]),
+            "num_pos": int(m["num_pos"]), **gaps, "limits": STEP_LIMITS[dtype],
+            "control_without_reduction": alone,
+            "control_averaged_gradients_params": half_update(before, ref)}
+        require(int(got["metrics"]["num_pos"]) == int(m["num_pos"]),
+                f"two ranks ({dtype}): num_pos differs")
+        check_mesh_step("two ranks", dtype, gaps, alone)
+
+    # 2. one rank over NCCL: the mesh paths against one device, bit for bit
+    mesh = train.make_data_mesh(device="cuda")
+    out["backend"] = torch.distributed.get_backend()
+    hp, state, data, flip, bits = dp_problem(torch, args.seed, B, dev)
+    mstate = train.replicate(mesh, copy.deepcopy(state))
+    with deterministic_cudnn(torch):
+        _, m1 = train.make_train_step(hp)(state, *data, flip=flip, rand_bits=bits)
+        reset(kernels)
+        _, mm = train.make_train_step(hp, mesh=mesh)(
+            mstate, *train.shard_batch(mesh, *data), flip=flip, rand_bits=bits)
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+    require(launches["targets"] == 1, f"mesh step launches {launches}")
+    for k in m1:
+        require(torch.equal(m1[k], mm[k]), f"one-rank mesh step differs in {k}")
+    for (k, a), b in zip(state.model.state_dict().items(), mstate.model.state_dict().values()):
+        require(torch.equal(a, b), f"one-rank mesh step differs in {k}")
+    words = torch.randint(-(2**31), 2**31, (B, 2, hp.total_anchors), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(args.seed + 9))
+    e1 = train.make_eval_loss_fn(hp)(state, *data, rand_bits=words)
+    em = train.make_eval_loss_fn(hp, mesh=mesh)(mstate, *train.shard_batch(mesh, *data),
+                                                rand_bits=words)
+    require(torch.equal(e1, em), f"one-rank mesh eval loss {float(em)} vs {float(e1)}")
+    images = torch.rand((B, 500, 500, 3), generator=torch.Generator().manual_seed(3)).to(dev)
+    p1 = make_predict_fn(state.model, hp, device=dev)(images)
+    reset(kernels)
+    pm = make_predict_fn(mstate.model, hp, device=dev, mesh=mesh)(train.shard_batch(mesh, images))
+    torch.cuda.synchronize()
+    launches_predict = counts(kernels)
+    require(launches_predict["proposals"] == 1, f"mesh predict launches {launches_predict}")
+    for k in p1:
+        require(torch.equal(p1[k], pm[k]), f"one-rank mesh predict differs in {k}")
+    out["one_rank_nccl"] = {"step": "bit-equal", "eval_loss": float(em), "predict": "bit-equal",
+                            "launches_step": launches, "launches_predict": launches_predict,
+                            "cudnn": "deterministic"}
+
+    # 3. the trainer CLI, device-resident and data-parallel, on that group
+    steps, val_batches = 5, 256 // B
+    graphs, made = [], cli.make_scan_train_steps
+
+    def recorded(*a, **k):  # the CLI's scan runs, for their graphs' counts
+        run = made(*a, **k)
+        graphs.append(run.graph)
+        return run
+
+    cli.make_scan_train_steps = recorded
+    reset(kernels)
+    t0 = time.perf_counter()
+    try:
+        text = run_cli(cli.trainer_main,
+                       ["--backbone", "mobilenet_v2", "--batch-size", str(B), "--epochs", "1",
+                        "--steps-per-epoch", str(steps), "--device-data", "--data-parallel",
+                        "--output-dir", str(Path(tmp) / "dp")], tmp)
+    finally:
+        cli.make_scan_train_steps = made
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    require("sharded over 1 ranks" in text and "saved best checkpoint" in text,
+            f"trainer --device-data --data-parallel: {text[-400:]!r}")
+    epoch = re.search(r"loss=([0-9.naninf]+) val_loss=([0-9.]+)", text)
+    require(epoch is not None and math.isfinite(float(epoch.group(1))), f"epoch line: {text[-300:]!r}")
+    # one 5-step chunk: an eager step, one capture and 4 replays; then 32
+    # validation batches
+    captures, replays = sum(g.captures for g in graphs), sum(g.replays for g in graphs)
+    require(len(graphs) == 1 and captures == 1 and replays == steps - 1,
+            f"trainer CLI: {len(graphs)} scan runs, {captures} captures, {replays} replays")
+    require(launches["targets"] == 2 + val_batches, f"trainer CLI launches {launches}")
+    executions = target_executions(launches["targets"], graphs)
+    require(executions == steps + val_batches, f"trainer CLI: {executions} target executions")
+    torch.distributed.destroy_process_group()
+    out["trainer_cli"] = {"steps": steps, "loss": float(epoch.group(1)),
+                          "val_loss": float(epoch.group(2)), "launches_counter": launches,
+                          "graph_captures": captures, "graph_replays": replays,
+                          "targets_executions": executions,
+                          "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def graph_steps_ms(torch, hp, data, batch, seed, steps, mesh=None):
+    """ms per step of ``make_scan_train_steps`` (replays; the first call's
+    eager step and capture are not timed) and of the eager mesh or
+    single-device step on the same rows."""
+    from tpurpn_torch import create_train_state, get_model, init_model, make_scan_train_steps, train
+
+    dev = data[0].device
+    model = init_model(get_model(hp), torch.Generator().manual_seed(seed), device=dev)
+    state = create_train_state(hp, model=model)
+    if mesh is not None:
+        state = train.replicate(mesh, state)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    run = make_scan_train_steps(hp, batch_size=batch, num_steps=steps, mesh=mesh)
+    run(state, gen, *data)
+    replay = time_ms(torch, lambda: run(state, gen, *data), 3, warmup=1) / steps
+    step = train.make_train_step(hp, mesh=mesh)
+    per = batch if mesh is None else batch // mesh.size()  # this rank's rows a step
+    rows = [torch.arange(per, device=dev) + (s * per) % data[0].shape[0] for s in range(steps)]
+
+    def eager():
+        for r in rows:
+            step(state, *(t[r] for t in data), gen)
+
+    return replay, time_ms(torch, eager, 3, warmup=1) / steps
+
+
+def multichip_worker(rank, n, store, out, seed, batch, frames, steps):
+    """One of ``n`` NCCL ranks, one a GPU: the mesh step of ``dp_problem``
+    (global batch ``batch``) against one device on every rank, then the
+    device-resident graph steps at ``batch`` rows a rank (weak scaling)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from tpurpn_torch import get_hyper_params, train
+    from tpurpn_torch.data import SyntheticVOC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, n), rank=rank, world_size=n)
+    try:
+        mesh = train.make_data_mesh(n, device="cuda")
+        dev = torch.device("cuda", rank)
+        res = {"rank_device": torch.cuda.get_device_name(dev)}
+        for dtype in ("float32", "bfloat16"):
+            hp, state, data, flip, bits = dp_problem(torch, seed, batch, dev, dtype)
+            single, alone = copy.deepcopy(state), copy.deepcopy(state)
+            before = copy.deepcopy(state.model.state_dict())
+            state = train.replicate(mesh, state)
+            _, m = train.make_train_step(hp, mesh=mesh)(
+                state, *train.shard_batch(mesh, *data), flip=flip, rand_bits=bits)
+            _, m1 = train.make_train_step(hp)(single, *data, flip=flip, rand_bits=bits)
+            ref = single.model.state_dict()
+            rows = slice(rank * batch // n, (rank + 1) * batch // n)
+            _, ma = train.make_train_step(hp)(alone, *train.shard_batch(mesh, *data),
+                                              flip=flip[rows], rand_bits=bits[rows])
+            res[f"step_{dtype}"] = {
+                **step_gaps(m, state.model.state_dict(), m1, ref),
+                "num_pos_equal": int(m["num_pos"]) == int(m1["num_pos"]),
+                "control_without_reduction": step_gaps(ma, alone.model.state_dict(), m1, ref),
+                "control_averaged_gradients_params": half_update(before, ref)}
+        for backbone in ("vgg16", "mobilenet_v2"):
+            hp = get_hyper_params(backbone)
+            data = train.shard_batch(mesh, *next(
+                SyntheticVOC(num_samples=frames * n, seed=seed).batches(frames * n)))
+            replay, eager = graph_steps_ms(torch, hp, data, batch * n, seed, steps, mesh)
+            res[f"graph_{backbone}"] = {"ms_per_step_replay": replay, "ms_per_step_eager": eager}
+        if rank == 0:
+            torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def multichip(torch, args, smi, tmp):
+    """``--ranks N``: the data-parallel paths over N GPUs with NCCL, one rank
+    a GPU: the mesh step against one device (within STEP_LIMITS; a step
+    without reduction outside them), the
+    graph steps at 8 rows a rank against one GPU at 8 rows (weak scaling),
+    and the trainer under ``torch.distributed.run``."""
+    import torch.multiprocessing as mp
+
+    from tpurpn_torch import get_hyper_params
+    from tpurpn_torch.data import SyntheticVOC
+
+    n, B, frames, steps = args.ranks, args.train_batch, 64, 8
+    require(torch.cuda.device_count() >= n, f"--ranks {n} needs {n} GPUs, "
+            f"{torch.cuda.device_count()} visible")
+    out = {"phase": "multichip_data_parallel", "ranks": n, "batch_per_rank": B,
+           "backend": "nccl", "nvidia_smi": smi}
+    for backbone in ("vgg16", "mobilenet_v2"):  # one GPU, batch B: the reference
+        data = tuple(torch.from_numpy(a).cuda() for a in next(
+            SyntheticVOC(num_samples=frames, seed=args.seed).batches(frames)))
+        replay, eager = graph_steps_ms(torch, get_hyper_params(backbone), data, B, args.seed,
+                                       steps)
+        out[f"one_gpu_{backbone}"] = {"ms_per_step_replay": replay, "ms_per_step_eager": eager}
+    result = str(Path(tmp) / "ranks.pt")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(multichip_worker,
+                             args=(n, str(Path(tmp) / "store"), result, args.seed, B, frames,
+                                   steps),
+                             nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError("chip_smoke check failed: the multi-GPU ranks timed out")
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    res = torch.load(result, weights_only=True)
+    for dtype in ("float32", "bfloat16"):
+        e = res[f"step_{dtype}"]
+        require(e["num_pos_equal"], f"{n} ranks ({dtype}): num_pos differs")
+        check_mesh_step(f"{n} ranks", dtype, e, e["control_without_reduction"])
+        out[f"step_{dtype}"] = {**e, "limits": STEP_LIMITS[dtype]}
+    for backbone in ("vgg16", "mobilenet_v2"):
+        g, one = res[f"graph_{backbone}"], out[f"one_gpu_{backbone}"]
+        out[f"ranks_{backbone}"] = {
+            **g, "global_batch": B * n,
+            "img_per_s_replay": B * n / g["ms_per_step_replay"] * 1e3,
+            "weak_scaling_efficiency_replay": one["ms_per_step_replay"] / g["ms_per_step_replay"],
+            "weak_scaling_efficiency_eager": one["ms_per_step_eager"] / g["ms_per_step_eager"]}
+    # the trainer as users launch it
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", str(REPO / "rpn_trainer_torch.py"), "--backbone",
+           "mobilenet_v2", "--batch-size", str(B * n), "--epochs", "1", "--steps-per-epoch",
+           "5", "--data-parallel", "--device-data", "--output-dir", str(Path(tmp) / "out")]
+    r = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+    print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr, flush=True)
+    require(r.returncode == 0 and f"data-parallel over {n} ranks" in r.stdout
+            and "saved best checkpoint" in r.stdout, f"torchrun trainer: rc {r.returncode}")
+    epoch = re.search(r"loss=([0-9.naninf]+) val_loss=([0-9.]+)", r.stdout)
+    require(epoch is not None and math.isfinite(float(epoch.group(1))), "torchrun epoch line")
+    out["torchrun_trainer"] = {"loss": float(epoch.group(1)), "val_loss": float(epoch.group(2)),
+                               "wall_s": time.perf_counter() - t0,
+                               "lines": r.stdout.count("[tpurpn_torch]")}
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def s2d_serving_phase(torch, args, dev, kernels, folded, trained, data):
+    """``make_predict_fn(fast=True, from_uint8=True)`` on 375x500 uint8
+    frames at batch B: routed through ``fast_uint8_forward`` (counted), its
+    head outputs within the bf16 tolerance of preprocess_batch +
+    ``fast_mobilenet_forward``, recall@300 of the trained weights over the
+    256 test frames within RECALL_TOL of tpurpn's, and both routes timed."""
+    from tpurpn_torch import get_hyper_params, inference, make_predict_fn
+    from tpurpn_torch.data import preprocess_batch
+    from tpurpn_torch.eval import proposal_recall
+
+    B = args.batch
+    hp = get_hyper_params("mobilenet_v2")
+    calls = []
+    real = inference.fast_uint8_forward
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    out = {"phase": "s2d_serving", "batch": B, "raw": [375, 500], "img_size": hp.img_size}
+    test = data.get_dataset("synthetic", "test", max_boxes=64)
+    inference.fast_uint8_forward = counted
+    try:
+        for name, model in (("random", folded), ("trained", trained)):
+            u8 = make_predict_fn(model, hp, fast=True, from_uint8=True, device=dev)
+            bf16 = make_predict_fn(model, hp, fast=True, device=dev)
+            frames = torch.from_numpy(next(test.batches(B))[0]).to(dev)
+
+            def pre_route():
+                x, _ = preprocess_batch(frames, torch.zeros((B, 1, 4), device=dev), hp.img_size,
+                                        dtype=torch.bfloat16)
+                return bf16(x)
+
+            del calls[:]
+            reset(kernels)
+            o = u8(frames)
+            torch.cuda.synchronize()
+            launches, stem_calls = counts(kernels), len(calls)
+            require(stem_calls == 1 and launches["ir_stage"] == 7 and launches["proposals"] == 1,
+                    f"s2d route ({name}): {stem_calls} stem calls, launches {launches}")
+            check_proposals(torch, o, B, hp.test_nms_topn)
+            with torch.no_grad():
+                x, _ = preprocess_batch(frames, torch.zeros((B, 1, 4), device=dev), hp.img_size,
+                                        dtype=torch.bfloat16)
+                ref = inference.fast_mobilenet_forward(model, x)
+                got = real(model, frames)
+            errs = [close_err(g, r) for g, r in zip(got, ref)]
+            require(all(ok for _, ok in errs), f"s2d head outputs ({name}): {errs}")
+            rec = gt = 0
+            for imgs, boxes, labels in test.batches(B):
+                imgs, boxes, labels = (torch.from_numpy(a).to(dev) for a in (imgs, boxes, labels))
+                pr = u8(imgs)
+                r = proposal_recall(pr["roi_boxes"], pr["num_valid"], boxes, labels)
+                rec += int(r["num_recalled"])
+                gt += int(r["num_gt"])
+            s2d_ms = time_ms(torch, lambda: u8(frames), 5)
+            pre_ms = time_ms(torch, pre_route, 5)
+            busy, ops = device_profile(torch, lambda: u8(frames))
+            out[name] = {"stem_calls": stem_calls, "launches": launches,
+                         "rpn_reg_max_abs_err": errs[0][0], "rpn_cls_max_abs_err": errs[1][0],
+                         "recall": rec / gt, "gt": gt, "ms_per_batch_s2d": s2d_ms,
+                         "ms_per_batch_preprocess_route": pre_ms,
+                         "device_busy_ms_s2d": busy, "device_ops_s2d": ops}
+            if name == "trained":
+                require(gt == REF_GT_TEST and abs(rec / gt - REF_RECALL_TEST) <= RECALL_TOL,
+                        f"s2d route recall {rec / gt} over {gt} GT vs tpurpn's {REF_RECALL_TEST}")
+    finally:
+        inference.fast_uint8_forward = real
+    out["tolerance"] = f"rel {TOL_REL} of max(1, |ref|max); recall within {RECALL_TOL}"
+    return out
 
 
 def run_cli(main, argv, cwd):
@@ -655,6 +1205,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--train-batch", type=int, default=8)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="N > 1: only the data-parallel paths over N GPUs (NCCL)")
     args = ap.parse_args()
 
     import torch
@@ -710,6 +1262,13 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for n in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    if args.ranks > 1:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        emit(multichip(torch, args, smi, tmp))
+        shutil.rmtree(tmp, ignore_errors=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     emit(native_loader_phase(native))
 
     # the model: seeded random weights, BN statistics perturbed, then folded
@@ -1002,6 +1561,11 @@ def main() -> int:
         phase, timing, launches[backbone] = train_phase(torch, backbone, args, dev, kernels)
         emit(phase)
         train_timing[backbone] = timing
+    # ... and its device-resident steps: one CUDA graph of the step, replayed
+    device_data = {}
+    for backbone in ("vgg16", "mobilenet_v2"):
+        device_data[backbone] = device_data_phase(torch, backbone, args, dev, kernels)
+        emit({**device_data[backbone], "nvidia_smi": smi})
 
     # standalone NMS at config 4 (unsorted top-2000 -> 300, batch 32) and
     # the IoU-matching entry on the config-3 batch
@@ -1209,6 +1773,12 @@ def main() -> int:
     launches["trainer_cli"] = trainer["launches"]
     emit(trainer)
 
+    # raw frames through the s2d stem, then the data-parallel paths
+    s2d = s2d_serving_phase(torch, args, dev, kernels, folded, trained, data)
+    emit({**s2d, "nvidia_smi": smi})
+    dp = data_parallel_phase(torch, args, dev, kernels, cli, tmp)
+    emit({**dp, "nvidia_smi": smi})
+
     tg_bound, tg_by = targets_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     mt_bound, mt_by = matching_bound(tb, hp3.total_anchors, int(gt3.shape[1]))
     nms_bd, nms_by = nms_bound(torch, nms_keep(*nms_args)[0], valid4, out4, 128)
@@ -1220,6 +1790,7 @@ def main() -> int:
          "launches_uint8": launches["uint8"]["ir_stage"],
          "launches_predictor_cli": launches["predictor_cli"]["ir_stage"],
          "launches_serving_trained": launches["serving_trained"]["ir_stage"],
+         "launches_s2d_serving": s2d["random"]["launches"]["ir_stage"],
          "max_abs_err": ir_err, "match": "bf16 tolerance", "ms": ir_ms,
          "device_ms": device_ms["ir_stage"],
          "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by,
@@ -1231,6 +1802,8 @@ def main() -> int:
          "launches_uint8": launches["uint8"]["proposals"],
          "launches_predictor_cli": launches["predictor_cli"]["proposals"],
          "launches_trainer_cli": launches["trainer_cli"]["proposals"],
+         "launches_s2d_serving": s2d["random"]["launches"]["proposals"],
+         "launches_mesh_predict": dp["one_rank_nccl"]["launches_predict"]["proposals"],
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
          "device_ms": device_ms["proposals"],
          "select_ms": select_ms, "sort_ms": sort_ms,
@@ -1242,6 +1815,13 @@ def main() -> int:
          "launches": launches["vgg16"]["targets"],
          "launches_mobilenet_v2": launches["mobilenet_v2"]["targets"],
          "launches_trainer_cli": launches["trainer_cli"]["targets"],
+         "launches_device_data": {b: d["launches_counter"]["targets"]
+                                  for b, d in device_data.items()},
+         "executions_device_data": {b: d["targets_executions"]
+                                    for b, d in device_data.items()},
+         "launches_mesh_step": dp["one_rank_nccl"]["launches_step"]["targets"],
+         "launches_trainer_cli_device_data": dp["trainer_cli"]["launches_counter"]["targets"],
+         "executions_trainer_cli_device_data": dp["trainer_cli"]["targets_executions"],
          "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
          "ms": tg_ms, "device_ms": device_ms["targets"], "plain_ms": tg_plain_ms,
          "bound_ms": tg_bound, "bound_by": tg_by,

@@ -1,9 +1,8 @@
 """The port's public surface against ``tpurpn``'s, and its independence.
 
 Every name of ``tpurpn.__all__`` is in ``tpurpn_torch.__all__`` and resolves
-there, with one listed exception not ported yet. Importing the port and
-each of its modules (in a fresh interpreter) loads no JAX, flax or
-``tpurpn``.
+there. Importing the port and each of its modules (in a fresh interpreter)
+loads no JAX, flax or ``tpurpn``.
 """
 
 import os
@@ -15,8 +14,8 @@ import tpurpn
 import tpurpn_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# not ported yet: device-resident scanned training (ROADMAP.md queue 1 item 8)
-NOT_PORTED = {"make_scan_train_steps"}
+# every name of tpurpn's is ported
+NOT_PORTED = set()
 
 
 def test_every_tpurpn_name_is_exported_by_the_port():

@@ -1,11 +1,15 @@
 """The port's trainer and predictor CLIs, in process on the CPU (``--device
 cpu``, 64x64 images): a trainer -> predictor round trip through a checkpoint
 directory, full and weights-only resume, the trained ``.npz`` in the
-predictor, the random-init warning, and the refusals (missing weights, a
-non-finite loss, the flags not ported yet)."""
+predictor, the random-init warning, the refusals (missing weights, a
+non-finite loss), and the trainer's data-parallel (a group of one, and
+two ranks under ``torch.distributed.run``) and device-resident routes
+against the single-device host loop."""
 
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -104,11 +108,81 @@ def test_trainer_nan_guard_fails_loudly(workdir):
     assert not (workdir / "rpn_vgg16").exists()  # nothing saved
 
 
-@pytest.mark.parametrize("flag", ["--data-parallel", "--device-data"])
-def test_trainer_refuses_the_flags_not_ported(workdir, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 8") as e:
-        cli.trainer_main(["--backbone", "vgg16", *TRAIN, flag])
-    assert flag in str(e.value)
+def _epoch_record(workdir, monkeypatch, backbone, flags):
+    """Train 2 epochs of 2 steps (shuffled, augmented) in ``workdir`` and
+    return the metrics.jsonl records."""
+    workdir.mkdir()
+    monkeypatch.chdir(workdir)
+    cli.trainer_main(["--backbone", backbone, *TRAIN[:3], "2", *TRAIN[4:],
+                      "--output-dir", str(workdir / "trained"), *flags])
+    (log,) = (workdir / "logs" / backbone).iterdir()
+    return [json.loads(line) for line in (log / "metrics.jsonl").read_text().splitlines()]
+
+
+def _same_losses(a, b):
+    assert len(a) == len(b) == 2
+    for x, y in zip(a, b):
+        assert (x["loss"], x["val_loss"]) == (y["loss"], y["val_loss"])
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "mobilenet_v2"])
+def test_trainer_data_parallel_group_of_one_matches_one_device(tmp_path, monkeypatch,
+                                                               capsys, backbone):
+    """--data-parallel under a plain launch: a gloo group of one on the CPU
+    whose losses are the single-device run's, and which it takes down after."""
+    ref = _epoch_record(tmp_path / "single", monkeypatch, backbone, [])
+    got = _epoch_record(tmp_path / "dp", monkeypatch, backbone, ["--data-parallel"])
+    assert "data-parallel over 1 ranks" in capsys.readouterr().out
+    _same_losses(got, ref)
+    assert not torch.distributed.is_initialized()
+
+
+def test_trainer_device_data_matches_the_host_loop(tmp_path, monkeypatch, capsys):
+    """--device-data: the training set stacked on the device and the steps
+    chained (the eager loop on the CPU) over the host iterator's shuffled
+    rows with the same generator: the host loop's losses."""
+    ref = _epoch_record(tmp_path / "host", monkeypatch, "mobilenet_v2", [])
+    got = _epoch_record(tmp_path / "dev", monkeypatch, "mobilenet_v2", ["--device-data"])
+    assert "device-resident training data: (256, 375, 500, 3) uint8" in capsys.readouterr().out
+    _same_losses(got, ref)
+
+
+def test_trainer_device_data_and_data_parallel_together(tmp_path, monkeypatch, capsys):
+    ref = _epoch_record(tmp_path / "host", monkeypatch, "vgg16", [])
+    got = _epoch_record(tmp_path / "both", monkeypatch, "vgg16",
+                        ["--device-data", "--data-parallel", "--eval-recall-every", "1"])
+    out = capsys.readouterr().out
+    assert "sharded over 1 ranks" in out and "val_recall@300=" in out
+    _same_losses(got, ref)
+    with pytest.raises(SystemExit, match="--grad-accum does not combine"):
+        cli.trainer_main(["--backbone", "vgg16", *TRAIN, "--device-data", "--grad-accum", "2"])
+
+
+def test_trainer_under_torchrun_two_ranks(tmp_path, monkeypatch):
+    """The launch users run: ``torch.distributed.run --standalone`` (a free
+    port on localhost) starts two ranks of rpn_trainer_torch.py
+    --data-parallel on the CPU (gloo). Rank 0 alone prints, logs and saves,
+    and the epoch's losses are the single-device run's (VGG16: no
+    BatchNorm; the ranks' bf16 forwards and the summed gradients round
+    differently, so within rel 1e-3)."""
+    ref = _epoch_record(tmp_path / "single", monkeypatch, "vgg16", [])
+    run = tmp_path / "torchrun"
+    run.mkdir()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         os.path.join(REPO, "rpn_trainer_torch.py"), "--backbone", "vgg16", *TRAIN[:3], "2",
+         *TRAIN[4:], "--output-dir", str(run / "trained"), "--data-parallel"],
+        cwd=run, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.count("data-parallel over 2 ranks") == 1
+    assert os.listdir(run / "trained" / "rpn_vgg16") == ["state.pt"]
+    (log,) = (run / "logs" / "vgg16").iterdir()  # one rank logs
+    got = [json.loads(line) for line in (log / "metrics.jsonl").read_text().splitlines()]
+    assert len(got) == len(ref) == 2
+    for x, y in zip(got, ref):
+        for k in ("loss", "val_loss"):
+            assert x[k] == pytest.approx(y[k], rel=1e-3), k
 
 
 def test_trainer_tensorboard_scalars(workdir, capsys):

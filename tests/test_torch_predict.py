@@ -144,7 +144,21 @@ def test_make_predict_fn_from_uint8(rng):
     model = port(img, folded=True)
     raw = torch.from_numpy(_raw(rng, (2, 96, 120, 3)))
     out = make_predict_fn(model, thp, fast=True, from_uint8=True, device="cpu")(raw)
-    x, _ = preprocess_batch(raw, torch.zeros((2, 1, 4)), img, dtype=torch.bfloat16)
+    # frames no larger than img_size take the s2d stem: its heads, selected
+    from tpurpn_torch.inference import fast_uint8_forward
+    from tpurpn_torch.kernels.proposal import fused_proposals
+    from tpurpn_torch.predict import decode_outputs
+
+    boxes, scores = decode_outputs(tpurpn_torch.generate_anchors(thp, "cpu"),
+                                   *fast_uint8_forward(model, raw), thp)
+    expect = fused_proposals(boxes, scores, min(thp.pre_nms_topn, thp.total_anchors),
+                             thp.nms_iou_threshold, thp.test_nms_topn)
+    for k in expect:
+        torch.testing.assert_close(out[k], expect[k], rtol=0, atol=0)
+    # larger frames take preprocess_batch and the fast forward
+    big = torch.from_numpy(_raw(rng, (2, 150, 120, 3)))
+    out = make_predict_fn(model, thp, fast=True, from_uint8=True, device="cpu")(big)
+    x, _ = preprocess_batch(big, torch.zeros((2, 1, 4)), img, dtype=torch.bfloat16)
     expect = make_predict_fn(model, thp, fast=True, device="cpu")(x)
     for k in expect:
         torch.testing.assert_close(out[k], expect[k], rtol=0, atol=0)

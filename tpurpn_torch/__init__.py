@@ -18,8 +18,11 @@ accumulation, ``make_eval_loss_fn``); and the standalone NMS kernel behind
 weights and checkpoints (``io_utils``), the datasets and the native batch
 generator (``data``, ``native``), drawing, profiling, and the single-device
 trainer and predictor CLIs (``cli``; ``rpn_trainer_torch.py``,
-``rpn_predictor_torch.py``). Not ported yet: the multi-device and
-device-resident scanned training (``make_scan_train_steps``).
+``rpn_predictor_torch.py``); data-parallel training, evaluation and serving
+over a ``torch.distributed`` mesh (``train.make_data_mesh``), the
+device-resident chained steps (``make_scan_train_steps``, a CUDA graph of
+the step on the card) and the space-to-depth uint8 serving stem
+(``inference.fast_uint8_forward``).
 """
 
 from .config import HyperParams, feature_map_shape_for, get_hyper_params
@@ -43,12 +46,13 @@ from .train import (
     create_train_state,
     default_optimizer,
     make_eval_loss_fn,
+    make_scan_train_steps,
     make_train_step,
     get_step_size,
     rpn_generator,
 )
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 __all__ = [
     "HyperParams",
@@ -74,6 +78,7 @@ __all__ = [
     "create_train_state",
     "default_optimizer",
     "make_train_step",
+    "make_scan_train_steps",
     "make_eval_loss_fn",
     "rpn_generator",
     "get_step_size",

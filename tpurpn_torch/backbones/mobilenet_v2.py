@@ -23,9 +23,11 @@ TF "SAME" at stride 2 pads asymmetrically: (0, 1) at even input sizes (500,
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -79,6 +81,50 @@ class Conv(nn.Conv2d):
         )
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the batch of every rank of ``group``: flax's
+    statistics under a data-parallel mesh. The forward all-reduces each
+    channel's count, sum and sum of squares (taken from one local
+    ``var_mean``) and normalizes in one pass with the global mean and biased
+    variance, flax's max(0, E[x^2] - E[x]^2). The backward all-reduces the
+    local sums of dy and dy * xhat (one reduction) and forms
+    dx = w * invstd * (dy - mean(dy) - xhat * mean(dy * xhat)) with the
+    global means; the weight and bias gradients stay local sums, which the
+    step's gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = (0, 2, 3)
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        n = x.numel() // x.shape[1]
+        sums = torch.stack([torch.full_like(mean, n), mean * n, (var + mean * mean) * n])
+        dist.all_reduce(sums, group=group)
+        count = sums[0]
+        mean = sums[1] / count
+        var = torch.clamp(sums[2] / count - mean * mean, min=0.0)
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.eps, ctx.group = eps, group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        # local sums of dy * xhat and dy, in one fused reduction
+        _, sum_dy_xhat, sum_dy = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, None, None, mean, invstd, True, ctx.eps, [False, True, True])
+        sums = torch.stack([sum_dy_xhat, sum_dy])
+        dist.all_reduce(sums, group=ctx.group)
+        scale = weight * invstd
+        c = -scale * invstd * sums[0] / count  # per channel: dx = scale dy + c x + d
+        d = -scale * sums[1] / count - c * mean
+        dx = torch.addcmul(torch.addcmul(d[:, None, None], x, c[:, None, None]),
+                           dy, scale[:, None, None])
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with Keras eps/momentum, computed in f32 and cast back to
     the input dtype (flax's ``_normalize`` promotes to the f32 statistics).
@@ -89,23 +135,51 @@ class BatchNorm(nn.BatchNorm2d):
     backward), and the running statistics move to m * old + (1 - m) * batch
     with m = ``bn_momentum``. torch's own train mode would store the
     unbiased variance, so the statistics are updated here.
+
+    With ``group`` set (``global_batch_statistics``) to a process group of
+    more than one rank, the batch is every rank's: the statistics, and so
+    the gradient, are the global batch's (``_GlobalBatchNorm``), as
+    ``tpurpn``'s BatchNorm computes them under a mesh. A group of one rank
+    holds the whole batch and takes the local path.
     """
 
     def __init__(self, ch, bn_momentum: float = 0.99):
         super().__init__(ch, eps=1e-3, momentum=1.0 - bn_momentum)
         self.bn_momentum = bn_momentum
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x.float()).to(x.dtype)
         xf = x.float()
-        y = F.batch_norm(xf, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        if self.group is not None and dist.get_world_size(self.group) > 1:
+            y, mean, var = _GlobalBatchNorm.apply(xf, self.weight, self.bias, self.eps,
+                                                  self.group)
+            mean, var = mean.detach(), var.detach()
+        else:
+            y = F.batch_norm(xf, None, None, self.weight, self.bias, training=True,
+                             eps=self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             m = self.bn_momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def global_batch_statistics(model: nn.Module, group):
+    """Within the block, every ``BatchNorm`` of ``model`` takes train-mode
+    statistics over the batches of all ranks of ``group``."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
 
 
 class _InvertedResidual(nn.Module):
@@ -158,17 +232,17 @@ class MobileNetV2Backbone(nn.Module):
     ``fold_bn=True`` builds the inference-only BN-folded variant (convs carry
     biases, no BatchNorm modules). ``stop_after_block`` returns that block's
     output instead (the prefix of the fused serving path; ``forward`` also
-    takes it per call so one module serves both). ``skip_stem`` takes the
-    Conv1 activations (B, ceil(H/2), ceil(W/2), 32) in place of images.
+    takes it per call so one module serves both). ``skip_stem=True`` (per
+    call) takes the Conv1 activations (B, ceil(H/2), ceil(W/2), 32) in place
+    of images.
     """
 
     def __init__(self, dtype=torch.bfloat16, fold_bn=False, bn_momentum=0.99,
-                 stop_after_block=None, skip_stem=False):
+                 stop_after_block=None):
         super().__init__()
         self.dtype = dtype
         self.fold_bn = fold_bn
         self.stop_after_block = stop_after_block
-        self.skip_stem = skip_stem
         self.Conv1 = Conv(3, 32, 3, 2, bias=fold_bn)
         if not fold_bn:
             self.bn_Conv1 = BatchNorm(32, bn_momentum)
@@ -189,11 +263,12 @@ class MobileNetV2Backbone(nn.Module):
     def block_names(self):
         return ["expanded_conv"] + [f"block_{i}" for i in range(1, self.num_blocks)]
 
-    def forward(self, x: torch.Tensor, stop_after_block: int | None = None):
+    def forward(self, x: torch.Tensor, stop_after_block: int | None = None,
+                skip_stem: bool = False):
         if stop_after_block is None:
             stop_after_block = self.stop_after_block
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> channels-last NCHW
-        if not self.skip_stem:
+        if not skip_stem:
             x = self.Conv1(x)
             if not self.fold_bn:
                 x = self.bn_Conv1(x)

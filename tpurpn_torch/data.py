@@ -66,7 +66,9 @@ def preprocess_batch(
     (p = 0.5 per image, on the CPU).
     """
     B = images.shape[0]
-    x = images.to(dtype) / torch.tensor(255.0, dtype=dtype, device=images.device)
+    # a fill, not a host copy (capturable in a CUDA graph); a true division,
+    # where a Python scalar divisor would multiply by its reciprocal on the card
+    x = images.to(dtype) / torch.full((), 255.0, dtype=dtype, device=images.device)
     x = resize_bilinear(x, img_size)
     if augment:
         if flip is None:

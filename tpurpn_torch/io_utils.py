@@ -58,7 +58,7 @@ def handle_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument("--data-parallel", action="store_true",
                    help="shard the batch over all visible devices "
-                        "(not ported yet: exits)")
+                        "(torchrun --nproc-per-node N ...; a plain launch is a group of one)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each batch into N microbatches and accumulate "
                         "gradients (exact — equals the full-batch gradient). "
@@ -66,7 +66,7 @@ def handle_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device-data", action="store_true",
                    help="keep the whole training set resident in device "
                         "memory and chain steps on the device "
-                        "(not ported yet: exits)")
+                        "(on the card: one CUDA graph of the step, replayed)")
     p.add_argument("--eval-recall-every", type=int, default=0, metavar="N",
                    help="trainer: every N epochs, also evaluate proposal "
                         "recall@test_nms_topn on the validation set and log "

@@ -29,7 +29,8 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 def huber(error: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     """Elementwise Huber: 0.5 e^2 for |e| <= delta else delta (|e| - 0.5 delta)."""
     abs_e = _abs(error)
-    quad = torch.minimum(abs_e, torch.tensor(delta, dtype=abs_e.dtype, device=abs_e.device))
+    # a fill, not a host copy: the step runs inside a CUDA graph capture
+    quad = torch.minimum(abs_e, torch.full((), delta, dtype=abs_e.dtype, device=abs_e.device))
     return 0.5 * quad * quad + delta * (abs_e - quad)
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .anchors import generate_anchors
 from .boxes import get_bboxes_from_deltas
@@ -69,6 +70,7 @@ def make_predict_fn(
     fast: bool = False,
     from_uint8: bool = False,
     device=None,
+    mesh=None,
 ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """Build the inference step: NHWC images -> proposals, on ``device``
     (default: cuda; ``model`` must live there).
@@ -83,9 +85,20 @@ def make_predict_fn(
 
     ``from_uint8=True`` takes raw uint8 frames: uint8 -> [0,1] in the compute
     dtype and a bilinear resize to ``hp.img_size`` (``data.preprocess_batch``)
-    run before the forward. ``tpurpn``'s space-to-depth stem, which fuses
-    this with Conv1 for fast=True, is not ported yet.
+    run before the forward. With ``fast=True``, frames that
+    ``inference.s2d_stem_supported`` accepts (even ``img_size``, frames no
+    larger) go through ``inference.fast_uint8_forward`` instead: the resize
+    emits the 2x2 space-to-depth layout and Conv1 runs folded into a 2x2
+    conv, as in ``tpurpn``.
+
+    With ``mesh`` (``train.make_data_mesh``) every rank passes its rows of the
+    batch (``train.shard_batch``), serves them, and gets the whole batch's
+    proposals, gathered from every rank in rank order. ``fast=True`` with a
+    mesh raises, as in ``tpurpn``.
     """
+    if fast and mesh is not None:
+        raise ValueError("fast=True is the single-device serving path: use fast=False with "
+                         "a mesh, or one single-device predict fn per device")
     device = default_device(device)
     anchors = generate_anchors(hp, device)
     out_topn = hp.test_nms_topn if topn is None else topn
@@ -94,9 +107,7 @@ def make_predict_fn(
     if fast and not (hp.backbone == "mobilenet_v2" and model.fold_bn):
         raise ValueError("fast=True requires the folded-BN mobilenet_v2 model")
 
-    @torch.no_grad()
-    def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        images = images.to(device)
+    def forward(images: torch.Tensor):
         if from_uint8:
             # a hard error: a float frame would be silently renormalized by
             # /255 into a near-black image
@@ -104,6 +115,10 @@ def make_predict_fn(
                 raise TypeError(
                     f"from_uint8=True expects raw uint8 frames; got {images.dtype}"
                 )
+            from . import inference
+
+            if fast and inference.s2d_stem_supported(hp, images.shape):
+                return inference.fast_uint8_forward(model, images)
             from .data import preprocess_batch
 
             images, _ = preprocess_batch(
@@ -113,10 +128,22 @@ def make_predict_fn(
         if fast:
             from .inference import fast_mobilenet_forward
 
-            rpn_reg, rpn_cls = fast_mobilenet_forward(model, images)
-        else:
-            rpn_reg, rpn_cls = model(images)
+            return fast_mobilenet_forward(model, images)
+        return model(images)
+
+    @torch.no_grad()
+    def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        rpn_reg, rpn_cls = forward(images.to(device))
         boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
-        return fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+        out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+        if mesh is None:
+            return out
+        group = mesh.get_group()
+        gathered = {}
+        for k, v in out.items():
+            parts = [torch.empty_like(v) for _ in range(mesh.size())]
+            dist.all_gather(parts, v.contiguous(), group=group)
+            gathered[k] = torch.cat(parts)
+        return gathered
 
     return predict_fn
