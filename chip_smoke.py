@@ -22,13 +22,22 @@ them:
    (B, 9216) candidates bit for bit; then both at edges the main path does
    not reach (S = 9, 17, 25, 31 and one image; score ties, duplicate boxes,
    fewer candidates than topn, pre not a multiple of the chunk, the 300th
-   keep inside a chunk, an image of -inf scores, max_output > pre);
+   keep inside a chunk, an image of -inf scores, max_output > pre); then
+   the IR stage over the rest of its domain (``ir_stage_domain``: the
+   serving stage at S = 33, 40, 47, 63, blocks 4-5 at S = 63, 80 with
+   c_exp_split 1-3, block_2 at S = 125, 160, each with dw_input_bf16 off
+   and on, a tail at each c_in) and its column strips: an S = 40 (and
+   block_2's S = 125) run bit-equal to a 32-wide crop's inside the crop;
 3. runs ``make_predict_fn(fast=True)`` on B bf16 images and
    ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8 375x500
    frames, with every kernel's launch count set to 0 just before each run and
    read just after; checks shapes, finiteness, ``0 <= num_valid <= 300`` and
    that both kernels launched; holds the fast forward against the plain
    folded forward at the bf16 tolerance;
+   then (``serving_640``) the same two entry points at 640x640 (a 40x40 tap,
+   14,400 anchors; uint8 480x640 frames take the s2d route), 7 IR-stage
+   and 1 proposal launches a batch, heads within the bf16 tolerance of the
+   unfused folded forward, ms a batch, busy time and where the time goes;
 4. holds the target kernel (config 3: VGG16 anchors N=8,649, B=8, M=8)
    and the IoU-matching kernel against their plain versions: labels and
    indices bit for bit, delta rows 2-3 (logf) at rel 1e-6; then M=64 with
@@ -58,7 +67,10 @@ them:
    walk visits), the NMS wrapper's sorts apart from its keep kernel (with
    the boxes and rounds each image's walk decides); a torch.profiler trace
    of each end-to-end run, of each kernel wrapper and of the NMS wrapper
-   gives the card's busy time and idle share.
+   gives the card's busy time and idle share; each kernel's ``device_ms`` is
+   the device time of its own launches in such a trace, a call (the phase
+   fails unless the trace holds the launches its wrapper counted for a
+   whole number of calls);
 
 7. builds the native batch generator (``tpurpn_torch/native``, g++; its
    version and build seconds in the ``setup`` line), times a batch of 128
@@ -70,7 +82,8 @@ them:
    set to 0 just before each: the IR stage launches 7 times a batch with
    ``--fast``, the proposal kernel once a batch; recall@300 within 0.01 of
    ``tpurpn``'s on the same frames (REF_RECALL_TEST); the PNG it draws is
-   read back;
+   read back; then with ``--img-size 640 --fast`` against tpurpn's recall
+   at 640 (REF_RECALL_640);
 9. serves the trained, folded weights on 128 validation frames (bf16,
    ``fast=True``): ms per batch, the proposal walk's length and the NMS
    rounds on the top-2000 of 32 images, beside the random weights' (the
@@ -170,6 +183,10 @@ NATIVE_CRC_SEED1 = 0x1C68A8F8
 # (the same 256 frames as at batch 128, in batches the CPU holds at a few
 # GB) printed "proposal recall@300 (IoU>=0.5): 0.8287 over 6234 GT boxes".
 REF_RECALL_TEST, REF_GT_TEST, RECALL_TOL = 0.8287, 6234, 0.01
+# ... and at 640x640 (a 40x40 tap, 14,400 anchors), with --img-size 640
+# added to that command: "proposal recall@300 (IoU>=0.5): 0.8114 over 6234
+# GT boxes".
+REF_RECALL_640 = 0.8114
 OPTIONAL = ("h5py", "PIL", "tensorboardX")
 RECALL_LINE = re.compile(r"proposal recall@(\d+) \(IoU>=0\.5\): ([0-9.]+) over (\d+) GT boxes")
 
@@ -206,38 +223,69 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def trace_device_events(torch, fn, iters: int):
+    """The operations that ran on the card in the last ``iters`` of
+    ``iters + 1`` traced calls of ``fn`` (the first is a warm-up: the
+    kernels launched just after tracing starts can be missing from it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters),
+                 on_trace_ready=lambda p: traces.append(list(p.events()))) as prof:
+        for _ in range(iters + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step annotations (ProfilerStep#) span each step on the card too
+    return [e for e in (traces[-1] if traces else [])
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and not e.name.startswith("ProfilerStep")]
+
+
 def device_profile(torch, fn, iters: int = 5, tries: int = 3):
     """(device busy ms, device operations) per call of ``fn`` from a
     torch.profiler trace: the summed durations of the operations that ran on
     the card (kernels, copies, fills, not the step annotations), which one
-    stream runs one after another. The trace's first step is a warm-up and
-    is not counted: the kernels launched just after tracing starts can be
-    missing from it (a trace of three calls once held two calls' kernels).
-    A trace whose device operations do not divide evenly among the calls is
-    taken again, up to ``tries`` times. (None, 0) when no trace holds a
-    whole number of calls' device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    stream runs one after another. A trace whose device operations do not
+    divide evenly among the calls is taken again, up to ``tries`` times.
+    (None, 0) when no trace holds a whole number of calls' device time."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        traces = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=iters),
-                     on_trace_ready=lambda p: traces.append(list(p.events()))) as prof:
-            for _ in range(iters + 1):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        # the step annotations (ProfilerStep#) span each step on the card too
-        on_device = [e for e in (traces[-1] if traces else [])
-                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                     and not e.name.startswith("ProfilerStep")]
+        on_device = trace_device_events(torch, fn, iters)
         busy_us = sum(e.self_device_time_total for e in on_device)
         if busy_us and len(on_device) % iters == 0:
             return busy_us / iters / 1e3, len(on_device) / iters
     return None, 0
+
+
+def kernel_device_ms(torch, fn, names, counter, iters: int = 5, tries: int = 3):
+    """(kernel ms, wrapper ms) per call of the wrapper call ``fn`` on the
+    card: the summed device time of the kernel's own launches (trace
+    operations whose name holds one of ``names``), and of every device
+    operation of the call, over the calls the trace holds. A trace must
+    hold the launches that ``counter`` (the wrapper) counts for a whole
+    number of calls, at least one and at most ``iters`` (the profiler can
+    drop a call's launches: seen for the target kernel, one call of five
+    in every trace of a process); it is taken again up to ``tries`` times,
+    and the check fails if none does."""
+    before = counter.launches
+    fn()
+    torch.cuda.synchronize()
+    per_call = counter.launches - before
+    found = []
+    for _ in range(tries):
+        on_device = trace_device_events(torch, fn, iters)
+        mine = [e for e in on_device if any(n in e.name for n in names)]
+        found.append(len(mine))
+        calls = len(mine) // per_call if per_call else 0
+        if calls and len(mine) == per_call * calls and calls <= iters:
+            return (sum(e.self_device_time_total for e in mine) / calls / 1e3,
+                    sum(e.self_device_time_total for e in on_device) / calls / 1e3)
+    raise RuntimeError(f"chip_smoke check failed: traces held {found} launches of {names}, "
+                       f"not a whole number of calls of {per_call} up to {per_call * iters}")
 
 
 def nvidia_smi() -> str:
@@ -279,6 +327,88 @@ def ir_stage_bound(x, weights, blocks):
     t_ops = max(mm / PEAK_BF16, dw / PEAK_F32)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The IR stage's kernels, as the profiler names them.
+IR_KERNELS = ("ir_block_kernel", "ir_expand_kernel")
+KSTRIP = 30  # output columns a strip of the IR-stage kernel takes at S > 32
+
+
+def ir_strips(S):
+    """(strips, width) of an S-wide row in the IR-stage kernel (csrc/ir_stage.cu:
+    strips): one strip up to 32 columns, else balanced strips of <= 30."""
+    n = 1 if S <= 32 else -(-S // KSTRIP)
+    sw = -(-S // n)
+    return -(-S // sw), sw
+
+
+def ir_domain_phase(torch, bb, gen, dev):
+    """The IR-stage kernel against its plain version over its domain beyond
+    the serving stage at S <= 32 (random bf16 inputs in [-1, 1), B = 2, the
+    seeded folded weights, the bf16 tolerance): the serving stage at S = 33,
+    40, 47, 63; blocks 4-5 at S = 63, 80 with c_exp_split 1, 2, 3; block_2
+    at S = 125, 160; each with dw_input_bf16 off and on; splits whose groups
+    are not whole 16-channel steps (blocks 4-5 at 8, block_2 at 2 and 4); a
+    tail at each c_in (the tails at 24, 32 and 64 are block_2's, block_4's
+    and block_7's expand convs).
+    Then tiling: the serving stage at S = 40 and on a 32-wide crop of its
+    input holding a strip seam of the S = 40 run inside, bit for bit on the
+    crop's pixels 6 or more from its edge (six 3x3 depthwise reach 6);
+    block_2 the same at S = 125 (reach 1)."""
+    from tpurpn_torch.inference import _FUSED_BLOCKS as SERVING_BLOCKS
+    from tpurpn_torch.kernels.ir_stage import (fused_ir_stage, fused_ir_stage_plain,
+                                               pack_stage_weights)
+
+    cases = [(f"serving_S{S}_dw{int(dw)}", SERVING_BLOCKS, "block_13_expand", S, 64,
+              {"dw_input_bf16": dw}) for S in (33, 40, 47, 63) for dw in (False, True)]
+    cases += [(f"blocks45_S{S}_dw{int(dw)}_split{split}", ("block_4", "block_5"), None, S, 32,
+               {"dw_input_bf16": dw, "c_exp_split": split})
+              for S in (63, 80) for dw in (False, True) for split in (1, 2, 3)]
+    cases += [(f"block2_S{S}_dw{int(dw)}", ("block_2",), None, S, 24, {"dw_input_bf16": dw})
+              for S in (125, 160) for dw in (False, True)]
+    cases += [(f"blocks45_S63_dw{int(dw)}_split8", ("block_4", "block_5"), None, 63, 32,
+               {"dw_input_bf16": dw, "c_exp_split": 8}) for dw in (False, True)]
+    cases += [(f"block2_S125_dw0_split{split}", ("block_2",), None, 125, 24,
+               {"c_exp_split": split}) for split in (2, 4)]
+    cases += [(f"tail{c_in}_S47", (), tail, 47, c_in, {})
+              for tail, c_in in (("block_2", 24), ("block_4", 32), ("block_7", 64),
+                                 ("block_13_expand", 96))]
+    out = {"phase": "ir_stage_domain", "B": 2,
+           "tolerance": f"rel {TOL_REL} of max(1, |ref|max)"}
+    with torch.no_grad():
+        for name, names, tail, S, c_in, opts in cases:
+            weights, blocks = pack_stage_weights(bb, names, tail_expand=tail)
+            x = (torch.rand((2, S, S, c_in), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+            got = fused_ir_stage(x, weights, blocks, **opts)
+            ref = fused_ir_stage_plain(x, weights, blocks, **opts)
+            torch.cuda.synchronize()
+            c_last = blocks[-1][2] or blocks[-1][1]
+            require(got.shape == (2, S, S, c_last), f"IR stage {name}: shape {tuple(got.shape)}")
+            err, ok = close_err(got, ref)
+            require(ok, f"IR stage kernel vs plain, {name}: max abs err {err}")
+            out[f"{name}_max_abs_err"] = err
+
+        for name, names, tail, S, off, reach in (
+                ("serving_S40", SERVING_BLOCKS, "block_13_expand", 40, 4, 6),
+                ("block2_S125", ("block_2",), None, 125, 40, 1)):
+            weights, blocks = pack_stage_weights(bb, names, tail_expand=tail)
+            n, sw = ir_strips(S)
+            seams = [s * sw for s in range(1, n)]
+            lo, hi = off + reach, off + 32 - reach  # the crop's inner columns in the S run
+            require(any(lo < c < hi for c in seams), f"no strip seam of {seams} in [{lo}, {hi})")
+            x = (torch.rand((2, S, S, blocks[0][0]), generator=gen, device=dev) * 2 - 1).to(
+                torch.bfloat16)
+            whole = fused_ir_stage(x, weights, blocks)
+            crop = fused_ir_stage(x[:, off:off + 32, off:off + 32].contiguous(), weights, blocks)
+            a = whole[:, lo:hi, lo:hi]
+            b = crop[:, reach:32 - reach, reach:32 - reach]
+            require(torch.equal(a, b), f"IR stage tiling, {name}: the S={S} run and its 32-wide "
+                    f"crop differ by {max_diff(torch, a, b)} inside the crop")
+            out[f"tiling_{name}"] = {"strips": n, "strip_width": sw, "seams_inside": [
+                c for c in seams if lo < c < hi], "crop_offset": off, "reach": reach,
+                "compared_pixels": int(a.shape[0] * a.shape[1] * a.shape[2]),
+                "bit_equal": True}
+    return out
 
 
 def proposal_bound(torch, boxes, scores, pre, max_output, thr):
@@ -1031,6 +1161,129 @@ def s2d_serving_phase(torch, args, dev, kernels, folded, trained, data):
     return out
 
 
+def serving_640_phase(torch, args, dev, kernels, smi):
+    """Fast serving at 640x640 (MobileNetV2, the 40x40 tap, 14,400 anchors)
+    through the entry points: ``make_predict_fn(fast=True)`` on B bf16
+    images and ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8
+    480x640 frames (the s2d route), each with every count at 0 just before
+    it: 7 IR-stage launches and 1 proposal launch a batch, proposals well
+    formed; the fast heads within the bf16 tolerance of the unfused folded
+    forward (the uint8 route's against preprocess_batch + the unfused
+    forward); the IR-stage kernel at S = 40 against its plain version and
+    the proposal kernel at N = 14,400 against its own, bit for bit; then ms a
+    batch, the card's busy time, and where the time goes."""
+    from tpurpn_torch import fold_batch_norm, get_hyper_params, get_model, init_model, inference
+    from tpurpn_torch.anchors import generate_anchors
+    from tpurpn_torch.data import preprocess_batch
+    from tpurpn_torch.inference import _FUSED_BLOCKS as SERVING_BLOCKS
+    from tpurpn_torch.kernels.ir_stage import (fused_ir_stage, fused_ir_stage_plain,
+                                               stage_weights_cached)
+    from tpurpn_torch.kernels.proposal import fused_proposals, fused_proposals_plain
+    from tpurpn_torch.model import apply_rpn_head, to_device
+    from tpurpn_torch.predict import decode_outputs, make_predict_fn
+
+    B = args.batch
+    hp = get_hyper_params("mobilenet_v2", img_size=640)
+    require(hp.feature_map_shape == 40 and hp.total_anchors == 14400,
+            f"640 px: a {hp.feature_map_shape} tap, {hp.total_anchors} anchors")
+    gen = torch.Generator().manual_seed(args.seed)
+    model = get_model(hp)
+    init_model(model, gen, device="cpu")
+    perturb_batch_norm(model, gen, torch)
+    folded = fold_batch_norm(to_device(model, dev))
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 640)
+    images = torch.rand((B, 640, 640, 3), generator=dgen, device=dev).to(torch.bfloat16)
+    frames = torch.randint(0, 256, (B, 480, 640, 3), generator=dgen, device=dev,
+                           dtype=torch.uint8)
+    require(inference.s2d_stem_supported(hp, frames.shape), "480x640 frames must take s2d")
+    pre, topn, thr = min(hp.pre_nms_topn, hp.total_anchors), hp.test_nms_topn, hp.nms_iou_threshold
+    predict = make_predict_fn(folded, hp, fast=True, device=dev)
+    predict_u8 = make_predict_fn(folded, hp, fast=True, from_uint8=True, device=dev)
+    out = {"phase": "serving_640", "batch": B, "img_size": 640, "raw": [480, 640],
+           "tap": 40, "anchors": hp.total_anchors, "pre": pre, "topn": topn, "nvidia_smi": smi,
+           "tolerance": f"rel {TOL_REL} of max(1, |ref|max)"}
+    for variant, fn, x in (("bf16", predict, images), ("uint8", predict_u8, frames)):
+        reset(kernels)
+        o = fn(x)
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+        require(launches["ir_stage"] == 7 and launches["proposals"] == 1,
+                f"640 serving ({variant}) launches {launches}")
+        check_proposals(torch, o, B, topn)
+        out[f"main_path_{variant}"] = {"launches": launches,
+                                       "num_valid_min": int(o["num_valid"].min()),
+                                       "num_valid_mean": float(o["num_valid"].float().mean())}
+
+    with torch.no_grad():
+        ref_reg, ref_cls = folded(images)
+        fast_reg, fast_cls = inference.fast_mobilenet_forward(folded, images)
+        x_pre, _ = preprocess_batch(frames, torch.zeros((B, 1, 4), device=dev), 640,
+                                    dtype=torch.bfloat16)
+        u8_ref = folded(x_pre)
+        u8_got = inference.fast_uint8_forward(folded, frames)
+        for name, got, ref in (("bf16_rpn_reg", fast_reg, ref_reg),
+                               ("bf16_rpn_cls", fast_cls, ref_cls),
+                               ("uint8_rpn_reg", u8_got[0], u8_ref[0]),
+                               ("uint8_rpn_cls", u8_got[1], u8_ref[1])):
+            err, ok = close_err(got, ref)
+            require(ok and bool(torch.isfinite(got).all()),
+                    f"640 fast heads vs the unfused forward, {name}: max abs err {err}")
+            out[f"{name}_max_abs_err"] = err
+
+        # the kernels at this size against their plain versions
+        feat6 = folded.backbone(images, stop_after_block=6).contiguous()
+        weights, blocks = stage_weights_cached(folded.backbone, SERVING_BLOCKS,
+                                               tail_expand="block_13_expand")
+        feat = fused_ir_stage(feat6, weights, blocks)
+        ir_err, ir_ok = close_err(feat, fused_ir_stage_plain(feat6, weights, blocks))
+        require(feat.shape == (B, 40, 40, 576) and ir_ok,
+                f"IR stage at S=40: {tuple(feat.shape)}, max abs err {ir_err}")
+        anchors = generate_anchors(hp, dev)
+        boxes, scores = decode_outputs(anchors, ref_reg, ref_cls, hp)
+        pk = fused_proposals(boxes, scores, pre, thr, topn)
+        pp = fused_proposals_plain(boxes, scores, pre, thr, topn)
+        for k in pp:
+            require(torch.equal(pk[k], pp[k]), f"proposal kernel vs plain at N=14,400: {k}")
+
+        reset(kernels)
+        fused_ir_stage(feat6, weights, blocks)
+        ir_launches = counts(kernels)["ir_stage"]
+        ir_ms = time_ms(torch, lambda: fused_ir_stage(feat6, weights, blocks), 20)
+        ir_device, ir_wrapper_device = kernel_device_ms(
+            torch, lambda: fused_ir_stage(feat6, weights, blocks), IR_KERNELS, fused_ir_stage)
+        ir_plain_ms = time_ms(torch, lambda: fused_ir_stage_plain(feat6, weights, blocks), 3)
+        ir_bound, ir_by = ir_stage_bound(feat6, weights, blocks)
+        pr_ms = time_ms(torch, lambda: fused_proposals(boxes, scores, pre, thr, topn), 20)
+        pr_device, pr_wrapper_device = kernel_device_ms(
+            torch, lambda: fused_proposals(boxes, scores, pre, thr, topn), ("proposal_kernel",),
+            fused_proposals)
+        pr_bound, pr_by, visited = proposal_bound(torch, boxes, scores, pre, topn, thr)
+        stages = {
+            "prefix_to_block_6": time_ms(
+                torch, lambda: folded.backbone(images, stop_after_block=6), 5),
+            "ir_stage_kernel": ir_ms,
+            "head": time_ms(torch, lambda: apply_rpn_head(folded, feat), 5),
+            "decode": time_ms(torch, lambda: decode_outputs(anchors, ref_reg, ref_cls, hp), 5),
+            "proposals_wrapper": pr_ms,
+            "s2d_stem": time_ms(torch, lambda: inference.s2d_uint8_stem(folded, frames), 5),
+        }
+        for name, fn, x in (("fast_bf16", predict, images), ("fast_uint8", predict_u8, frames)):
+            ms = time_ms(torch, lambda: fn(x), 5)
+            busy, ops = device_profile(torch, lambda: fn(x))
+            out[f"end_to_end_{name}"] = {
+                "ms_per_batch": ms, "img_per_s": B / ms * 1e3, "device_busy_ms": busy,
+                "device_ops": ops, "device_idle_share": None if busy is None else 1.0 - busy / ms}
+    out["stages_ms"] = stages
+    out["ir_stage_s40"] = {"launches": ir_launches, "max_abs_err": ir_err, "ms": ir_ms,
+                           "device_ms": ir_device, "wrapper_device_ms": ir_wrapper_device,
+                           "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by}
+    out["proposals_n14400"] = {"ms": pr_ms, "device_ms": pr_device,
+                               "wrapper_device_ms": pr_wrapper_device, "bound_ms": pr_bound,
+                               "bound_by": pr_by, "match": "bit-exact",
+                               "visited_mean": float(visited.float().mean())}
+    return out
+
+
 def run_cli(main, argv, cwd):
     """Run a CLI entry point in process from ``cwd``; returns what it printed."""
     buf = io.StringIO()
@@ -1110,14 +1363,17 @@ def native_loader_phase(native):
             "deterministic": True}
 
 
-def predictor_trained_phase(torch, kernels, cli, batch, tmp):
-    """The predictor CLI on the trained weights over the 256 test frames,
-    with --fast and without: launches, recall against tpurpn's, the PNG."""
-    out = {"phase": "predictor_trained", "weights": str(TRAINED_NPZ.relative_to(REPO)),
+def predictor_trained_phase(torch, kernels, cli, batch, tmp, img_size=500, variants=(True, False),
+                            ref_recall=REF_RECALL_TEST):
+    """The predictor CLI on the trained weights over the 256 test frames at
+    ``img_size``, with --fast and without (``variants``): launches, recall
+    against tpurpn's (``ref_recall``), the PNG."""
+    out = {"phase": "predictor_trained" + ("" if img_size == 500 else f"_{img_size}"),
+           "weights": str(TRAINED_NPZ.relative_to(REPO)), "img_size": img_size,
            "frames": "SyntheticVOC test (seed 2), native", "max_boxes": 64, "batch": batch,
-           "ref_recall": REF_RECALL_TEST, "tolerance": RECALL_TOL}
+           "ref_recall": ref_recall, "tolerance": RECALL_TOL}
     batches = 256 // batch
-    for fast in (True, False):
+    for fast in variants:
         name = "fast" if fast else "plain_backbone"
         png = Path(tmp) / "proposals_mobilenet_v2.png"
         if png.exists():
@@ -1126,7 +1382,8 @@ def predictor_trained_phase(torch, kernels, cli, batch, tmp):
         t0 = time.perf_counter()
         text = run_cli(cli.predictor_main,
                        ["--backbone", "mobilenet_v2", "--weights", str(TRAINED_NPZ),
-                        "--batch-size", str(batch), "--output-dir", str(tmp)]
+                        "--batch-size", str(batch), "--img-size", str(img_size),
+                        "--output-dir", str(tmp)]
                        + (["--fast"] if fast else []),
                        tmp)
         torch.cuda.synchronize()
@@ -1136,13 +1393,13 @@ def predictor_trained_phase(torch, kernels, cli, batch, tmp):
         require("ignoring" not in text, f"predictor dropped --fast: {text[-300:]!r}")
         require(launches["ir_stage"] == (7 * batches if fast else 0)
                 and launches["proposals"] == batches and launches["targets"] == 0,
-                f"predictor ({name}) launches {launches}")
+                f"predictor ({name}, {img_size}) launches {launches}")
         require(topn == 300 and n_gt == REF_GT_TEST, f"predictor ({name}): {n_gt} GT boxes")
-        require(abs(recall - REF_RECALL_TEST) <= RECALL_TOL,
-                f"predictor ({name}) recall {recall} vs tpurpn's {REF_RECALL_TEST}")
+        require(abs(recall - ref_recall) <= RECALL_TOL,
+                f"predictor ({name}, {img_size}) recall {recall} vs tpurpn's {ref_recall}")
         pixels = read_png(png)
         red = int((pixels == (255, 40, 40)).all(-1).sum())
-        require(pixels.shape == (500, 500, 3) and red > 0,
+        require(pixels.shape == (img_size, img_size, 3) and red > 0,
                 f"predictor ({name}) PNG {pixels.shape}, {red} outline pixels")
         out[name] = {"recall": recall, "gt": n_gt, "launches": launches, "wall_s": wall,
                      "png": list(pixels.shape), "png_outline_pixels": red}
@@ -1365,6 +1622,8 @@ def main() -> int:
         require(max(edges["proposals_max_output_gt_pre_num_valid"]) <= 250,
                 "no more keeps than candidates")
     emit({"phase": "kernel_edge_cases", **edges})
+    ir_domain = ir_domain_phase(torch, folded.backbone, dgen, dev)
+    emit({**ir_domain, "nvidia_smi": smi})
 
     # the target and IoU-matching kernels at config 3: VGG16 anchors, B=8
     # SyntheticVOC samples (M=8), words from a seeded generator
@@ -1664,16 +1923,25 @@ def main() -> int:
             boxes4, scores4, out4, thr4, use_kernel=False), 3)
         bnms_busy_ms, bnms_ops = device_profile(torch, lambda: batched_non_max_suppression(
             boxes4, scores4, out4, thr4))
-        # each wrapper's busy time on the card, apart from its host overhead
-        device_ms = {name: device_profile(torch, fn)[0] for name, fn in (
-            ("ir_stage", lambda: fused_ir_stage(feat6, weights, blocks)),
-            ("proposals", lambda: fused_proposals(boxes, scores, pre, thr, topn)),
-            ("targets", lambda: fused_rpn_targets(*tg_args)),
-            ("iou_matching", lambda: fused_iou_matching(anchors3, gt3)),
+        # each kernel's own launches on the card (and its wrapper's whole
+        # device time), apart from the host's overhead
+        device_ms, wrapper_device_ms = {}, {}
+        for name, fn, counter, kernel_names in (
+            ("ir_stage", lambda: fused_ir_stage(feat6, weights, blocks), fused_ir_stage,
+             IR_KERNELS),
+            ("proposals", lambda: fused_proposals(boxes, scores, pre, thr, topn),
+             fused_proposals, ("proposal_kernel",)),
+            ("targets", lambda: fused_rpn_targets(*tg_args), fused_rpn_targets,
+             ("targets_kernel",)),
+            ("iou_matching", lambda: fused_iou_matching(anchors3, gt3), fused_iou_matching,
+             ("matching_kernel",)),
             # the same batch against 5 anchors: launch, staging and the two
             # cluster barriers with next to no IoU work
-            ("iou_matching_n5", lambda: fused_iou_matching(anchors5, gt3)),
-            ("nms", lambda: nms_keep(*nms_args)))}
+            ("iou_matching_n5", lambda: fused_iou_matching(anchors5, gt3), fused_iou_matching,
+             ("matching_kernel",)),
+            ("nms", lambda: nms_keep(*nms_args), nms_keep, ("nms_kernel",))):
+            device_ms[name], wrapper_device_ms[name] = kernel_device_ms(
+                torch, fn, kernel_names, counter)
     decided = nms_decided(torch, nms_keep(*nms_args)[0], out4, 128).float()
     rounds = torch.ceil(decided / 32)  # 32 candidates a round
     emit({"phase": "config4_nms_ms", "batch": nb, "n": n4, "max_output": out4,
@@ -1697,11 +1965,18 @@ def main() -> int:
           "sort": sort_ms, "select_kernel": select_ms, "wrapper": pr_ms,
           "visited_mean": float(visited.float().mean()), "visited_max": int(visited.max())})
 
+    # fast serving at 640x640, counts at 0 before each of its two routes
+    s640 = serving_640_phase(torch, args, dev, kernels, smi)
+    emit(s640)
+
     # 5. the CLIs and the trained weights, each with every count at 0 first
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     predictor = predictor_trained_phase(torch, kernels, cli, B, tmp)
     launches["predictor_cli"] = predictor["fast"]["launches"]
     emit(predictor)
+    predictor640 = predictor_trained_phase(torch, kernels, cli, B, tmp, img_size=640,
+                                           variants=(True,), ref_recall=REF_RECALL_640)
+    emit(predictor640)
 
     # the trained, folded weights served on 128 validation frames (seed 1)
     trained = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device=dev)
@@ -1791,10 +2066,16 @@ def main() -> int:
          "launches_predictor_cli": launches["predictor_cli"]["ir_stage"],
          "launches_serving_trained": launches["serving_trained"]["ir_stage"],
          "launches_s2d_serving": s2d["random"]["launches"]["ir_stage"],
+         "launches_640": s640["main_path_bf16"]["launches"]["ir_stage"],
+         "launches_640_uint8": s640["main_path_uint8"]["launches"]["ir_stage"],
+         "launches_predictor_cli_640": predictor640["fast"]["launches"]["ir_stage"],
          "max_abs_err": ir_err, "match": "bf16 tolerance", "ms": ir_ms,
          "device_ms": device_ms["ir_stage"],
+         "wrapper_device_ms": wrapper_device_ms["ir_stage"],
          "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by,
-         "library_ms": None},
+         "library_ms": None,
+         "max_abs_err_domain": max(v for k, v in ir_domain.items() if k.endswith("max_abs_err")),
+         "s40": s640["ir_stage_s40"]},
         {"name": "fused_proposals", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/proposal.cu",
          "replaces": "tpurpn/kernels/proposal_pallas.py:352",
@@ -1804,11 +2085,13 @@ def main() -> int:
          "launches_trainer_cli": launches["trainer_cli"]["proposals"],
          "launches_s2d_serving": s2d["random"]["launches"]["proposals"],
          "launches_mesh_predict": dp["one_rank_nccl"]["launches_predict"]["proposals"],
+         "launches_640": s640["main_path_bf16"]["launches"]["proposals"],
          "max_abs_err": pr_err, "match": "bit-exact", "ms": pr_ms,
          "device_ms": device_ms["proposals"],
+         "wrapper_device_ms": wrapper_device_ms["proposals"],
          "select_ms": select_ms, "sort_ms": sort_ms,
          "plain_ms": pr_plain_ms, "bound_ms": pr_bound, "bound_by": pr_by,
-         "library_ms": None},
+         "library_ms": None, "n14400": s640["proposals_n14400"]},
         {"name": "fused_rpn_targets", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:355",
@@ -1823,7 +2106,8 @@ def main() -> int:
          "launches_trainer_cli_device_data": dp["trainer_cli"]["launches_counter"]["targets"],
          "executions_trainer_cli_device_data": dp["trainer_cli"]["targets_executions"],
          "max_abs_err": tg_err, "match": "labels bit-exact, deltas rel 1e-6",
-         "ms": tg_ms, "device_ms": device_ms["targets"], "plain_ms": tg_plain_ms,
+         "ms": tg_ms, "device_ms": device_ms["targets"],
+         "wrapper_device_ms": wrapper_device_ms["targets"], "plain_ms": tg_plain_ms,
          "bound_ms": tg_bound, "bound_by": tg_by,
          "library_ms": None, "cluster": clusters["rpn_targets"],
          "blocks": clusters["rpn_targets"] * tb},
@@ -1832,7 +2116,8 @@ def main() -> int:
          "replaces": "tpurpn/kernels/target_pallas.py:413",
          "launches": launches["matching_path"]["iou_matching"],
          "max_abs_err": mt_err, "match": "bit-exact", "ms": mt_ms,
-         "device_ms": device_ms["iou_matching"], "plain_ms": mt_plain_ms,
+         "device_ms": device_ms["iou_matching"],
+         "wrapper_device_ms": wrapper_device_ms["iou_matching"], "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None,
          "cluster": clusters["iou_matching"], "blocks": clusters["iou_matching"] * tb,
          "device_ms_n5": device_ms["iou_matching_n5"]},
@@ -1841,7 +2126,7 @@ def main() -> int:
          "replaces": "tpurpn/kernels/nms_pallas.py:191",
          "launches": launches["nms_path"]["nms"],
          "max_abs_err": nms_err, "match": "bit-exact", "ms": nms_ms,
-         "device_ms": device_ms["nms"],
+         "device_ms": device_ms["nms"], "wrapper_device_ms": wrapper_device_ms["nms"],
          "plain_ms": nms_plain_ms,
          "bound_ms": nms_bd, "bound_by": nms_by, "library_ms": None},
     ]})

@@ -7,7 +7,11 @@ plain versions.
 
 * IR stage: ``tpurpn``'s own oracle for its kernel (tests/test_ir_stage.py)
   — the stage fed the folded flax prefix's block_6 output must equal the
-  full folded flax backbone tap, at bf16 tolerance.
+  full folded flax backbone tap, at bf16 tolerance; over the rest of its
+  domain (S above 32, block_2, blocks 4-5, tails at 24 and 32 channels,
+  ``dw_input_bf16``, ``c_exp_split``) against ``tpurpn``'s kernel in
+  interpret mode, at bf16 tolerance; and fast serving at an S = 33 tap
+  end to end.
 * Proposals: bit-exact (atol 0) against ``tpurpn.predict.generate_proposals``
   on identical f32 candidates, over the cases of
   tests/test_proposal_pallas.py, plus one case against the Pallas kernel in
@@ -35,6 +39,7 @@ import torch
 import tpurpn
 from tpurpn.backbones.mobilenet_v2 import MobileNetV2Backbone
 from tpurpn.inference import _FUSED_BLOCKS, _PREFIX_MODULES
+from tpurpn.kernels.ir_stage_pallas import fused_ir_stage as j_fused_ir_stage
 from tpurpn.kernels.ir_stage_pallas import pack_stage_weights as j_pack_stage_weights
 from tpurpn.kernels.proposal_pallas import fused_proposals_planes
 from tpurpn.predict import generate_proposals as j_generate_proposals
@@ -77,49 +82,71 @@ def _sw64_offset(rows, row, k):
 
 def _unpack(flat, spec):
     """The inverse of ``ir_stage.kernel_pack`` for one block: (we (c_in,
-    c_exp), wp (c_exp, c_out) or None), in ``pack_stage_weights``' layout."""
+    c_exp), wp (c_exp, c_out) or None), in ``pack_stage_weights``' layout,
+    with the padding to ``kernel_widths`` checked to be zero and cut off."""
     c_in, c_exp, c_out, _ = spec
+    k_in, n_exp = ir_stage.kernel_widths(spec)
     width = ir_stage.TAIL_NC if c_out is None else ir_stage.CH
-    chunks = flat.reshape(c_exp // width, -1)
+    chunks = flat.reshape(n_exp // width, -1)
 
     def unswizzle(m, rows, k):
         return m[:, ir_stage._sw64_index(rows, k)].reshape(-1, rows, k)
 
-    we = unswizzle(chunks[:, : width * c_in], width, c_in).reshape(c_exp, c_in).t()
+    we = unswizzle(chunks[:, : width * k_in], width, k_in).reshape(n_exp, k_in).t()
+    assert not we[c_in:].any() and not we[:, c_exp:].any()
+    we = we[:c_in, :c_exp]
     if c_out is None:
         return we, None
-    wp = unswizzle(chunks[:, width * c_in :], c_out, width).transpose(1, 2)
-    return we, wp.reshape(c_exp, c_out)
+    wp = unswizzle(chunks[:, width * k_in :], c_out, width).transpose(1, 2).reshape(n_exp, c_out)
+    assert not wp[c_exp:].any()
+    return we, wp[:c_exp]
 
 
-@pytest.mark.parametrize("block", [0, 3, 4, 6], ids=["64to64", "64to96", "96to96", "tail"])
-def test_kernel_pack_round_trips_to_pack_stage_weights(block):
-    weights, blocks = _stage()
+def _stage_of(names, tail=None):
+    """(weights, blocks) of backbone ``names`` (+ tail) of the seeded port;
+    ``tail`` may be a block name, whose expand conv then serves as the
+    expand-only tail."""
+    return ir_stage.pack_stage_weights(port(128, folded=True).backbone, names, tail_expand=tail)
+
+
+# (stage, index of the block in it): the serving stage's blocks and tail,
+# block_2 (c_in 24, c_exp 144: both padded), block_4 and a tail at c_in 24
+PACK_CASES = {"64to64": (None, 0), "64to96": (None, 3), "96to96": (None, 4), "tail": (None, 6),
+              "24to24": ((("block_2",), None), 0), "32to32": ((("block_4",), None), 0),
+              "tail24": (((), "block_2"), 0)}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_kernel_pack_round_trips_to_pack_stage_weights(case):
+    stage, block = PACK_CASES[case]
+    weights, blocks = _stage() if stage is None else _stage_of(*stage)
     packs = ir_stage.kernel_pack(weights, blocks)
     c_in, c_exp, c_out, _ = blocks[block]
+    k_in, n_exp = ir_stage.kernel_widths(blocks[block])
     wi = sum(2 if b[2] is None else 6 for b in blocks[:block])
     we, wp = _unpack(packs[block], blocks[block])
     assert torch.equal(we, weights[wi])
     if c_out is None:
         assert wp is None
-        width, chunk = ir_stage.TAIL_NC, ir_stage.TAIL_NC * c_in
+        width, chunk = ir_stage.TAIL_NC, ir_stage.TAIL_NC * k_in
     else:
         assert torch.equal(wp, weights[wi + 4])
-        width, chunk = ir_stage.CH, ir_stage.CH * (c_in + c_out)
+        width, chunk = ir_stage.CH, ir_stage.CH * (k_in + c_out)
     flat = packs[block]
-    assert flat.dtype == torch.bfloat16 and flat.numel() == c_exp * (c_in + (c_out or 0))
-    assert (chunk * 2) % 16 == 0  # one bulk copy a chunk: a multiple of 16 bytes
+    assert flat.dtype == torch.bfloat16 and flat.numel() == n_exp * (k_in + (c_out or 0))
+    assert (chunk * 2) % 512 == 0  # one bulk copy a chunk, stages 512-byte aligned
     # element (channel n of chunk c, input k) of the expand image, and
     # (output o, channel n) of the project image, where the kernel reads them
     rng = np.random.default_rng(block)
-    for c, n, k in zip(rng.integers(0, c_exp // width, 20), rng.integers(0, width, 20),
+    for c, n, k in zip(rng.integers(0, n_exp // width, 20), rng.integers(0, width, 20),
                        rng.integers(0, c_in, 20)):
         at = c * chunk + _sw64_offset(width, n, k)
-        assert flat[at] == weights[wi][k, c * width + n]
+        e = c * width + n
+        assert flat[at] == (weights[wi][k, e] if e < c_exp else 0)
         if c_out is not None:
             o = int(k) % c_out
-            at = c * chunk + width * c_in + _sw64_offset(c_out, o, n)
-            assert flat[at] == weights[wi + 4][c * width + n, o]
+            at = c * chunk + width * k_in + _sw64_offset(c_out, o, n)
+            assert flat[at] == (weights[wi + 4][e, o] if e < c_exp else 0)
 
 
 def test_kernel_pack_cache_serves_in_place_updates():
@@ -196,6 +223,118 @@ def test_ir_stage_plain_matches_flax_tap(img):
     assert ir_stage.fused_ir_stage.launches == launches
     assert got.shape == (2, S, S, 576) and got.dtype == torch.bfloat16
     close(got.float().numpy(), np.asarray(full.astype(jnp.float32)))
+
+
+# The stage's domain held against tpurpn's kernel in interpret mode (B = 1,
+# the same bf16 input and weights): (block names, tail, S, c_in, options).
+# Tails at c_in 24 and 32 use block_2's and block_4's expand convs.
+SERVING = ("block_7", "block_8", "block_9", "block_10", "block_11", "block_12")
+DOMAIN_CASES = {
+    "serving_S33": (SERVING, "block_13_expand", 33, 64, {}),
+    "serving_S40": (SERVING, "block_13_expand", 40, 64, {}),
+    **{f"blocks45_S63_dw{int(dw)}_split{split}": (
+        ("block_4", "block_5"), None, 63, 32, {"dw_input_bf16": dw, "c_exp_split": split})
+       for dw in (False, True) for split in (1, 2)},
+    "block2_S9": (("block_2",), None, 9, 24, {}),
+    # splits whose groups are not whole 16-channel steps (72 and 24 channels)
+    "block2_S9_split2": (("block_2",), None, 9, 24, {"c_exp_split": 2}),
+    "blocks45_S17_split8": (("block_4", "block_5"), None, 17, 32, {"c_exp_split": 8}),
+    "tail24_S9": ((), "block_2", 9, 24, {}),
+    "tail32_S9": ((), "block_4", 9, 32, {}),
+}
+
+
+def _stage_input(S, c_in, seed=0):
+    x = np.random.default_rng(seed).uniform(-1, 1, (1, S, S, c_in)).astype(np.float32)
+    return np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _j_stage(names, tail):
+    """tpurpn's pack of the same stage as ``_stage_of`` (``tpurpn``'s
+    ``pack_stage_weights`` takes block_13_expand alone as a tail)."""
+    bb = jax.tree_util.tree_map(jnp.asarray, flax_mobilenet(128)[4]["params"]["backbone"])
+    if tail in (None, "block_13_expand"):
+        return j_pack_stage_weights(bb, names, tail_expand=tail)
+    weights, blocks = j_pack_stage_weights(bb, names)
+    (we, be, *_), ((c_in, c_exp, _, _),) = j_pack_stage_weights(bb, (tail,))
+    return weights + (we, be), tuple(blocks) + ((c_in, c_exp, None, False),)
+
+
+@pytest.mark.parametrize("case", list(DOMAIN_CASES))
+def test_ir_stage_plain_matches_tpurpn_kernel_interpreted(case):
+    """fused_ir_stage on the CPU (its plain version) against tpurpn's
+    fused_ir_stage in interpret mode, at bf16 tolerance. (With
+    dw_input_bf16, XLA on the CPU keeps each bf16 tap product in f32; the
+    port rounds it to bf16 as the operands' type says: up to one bf16 ulp
+    of the output apart.)"""
+    names, tail, S, c_in, opts = DOMAIN_CASES[case]
+    weights, blocks = _stage_of(names, tail)
+    jw, jb = _j_stage(names, tail)
+    assert tuple(jb) == blocks
+    x = _stage_input(S, c_in)
+    ref = j_fused_ir_stage(jnp.asarray(x).astype(jnp.bfloat16), jw, tuple(jb), interpret=True,
+                           **opts)
+    got = ir_stage.fused_ir_stage(torch.from_numpy(x).to(torch.bfloat16), weights, blocks,
+                                  **opts)
+    c_last = blocks[-1][2] or blocks[-1][1]
+    assert got.shape == (1, S, S, c_last) and got.dtype == torch.bfloat16
+    close(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_ir_stage_dw_input_bf16_changes_the_plain_result():
+    weights, blocks = _stage_of(("block_4", "block_5"))
+    x = torch.from_numpy(_stage_input(17, 32)).to(torch.bfloat16)
+    f32 = ir_stage.fused_ir_stage_plain(x, weights, blocks)
+    bf16 = ir_stage.fused_ir_stage_plain(x, weights, blocks, dw_input_bf16=True)
+    assert not torch.equal(f32, bf16)
+    close(bf16.float().numpy(), f32.float().numpy())
+
+
+def test_fast_serving_at_a_tap_wider_than_32_matches_tpurpn():
+    """make_predict_fn(fast=True) at img_size 520 (an S = 33 stage): the
+    fast heads within bf16 tolerance of tpurpn's fast_mobilenet_forward in
+    interpret mode, the served proposals exactly those of the port's heads,
+    and the proposals of tpurpn's heads selected as tpurpn selects them."""
+    from tpurpn.anchors import generate_anchors as j_generate_anchors
+    from tpurpn.inference import fast_mobilenet_forward as j_fast_forward
+    from tpurpn.predict import decode_outputs as j_decode_outputs
+    from tpurpn_torch.inference import fast_mobilenet_forward
+    from tpurpn_torch.predict import decode_outputs, generate_proposals, make_predict_fn
+
+    img = 520
+    hp, _, _, _, fvars = flax_mobilenet(img)
+    thp = tpurpn_torch.get_hyper_params("mobilenet_v2", img_size=img)
+    assert hp.feature_map_shape == thp.feature_map_shape == 33
+    model = port(img, folded=True)
+    x = images(img, batch=1)
+    ref_reg, ref_cls = j_fast_forward(hp, jax.tree_util.tree_map(jnp.asarray, fvars),
+                                      jnp.asarray(x).astype(jnp.bfloat16), interpret=True)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    reg, cls = fast_mobilenet_forward(model, xt)
+    close(reg.numpy(), np.asarray(ref_reg))
+    close(cls.numpy(), np.asarray(ref_cls))
+
+    launches = ir_stage.fused_ir_stage.launches
+    out = make_predict_fn(model, thp, fast=True, device="cpu")(xt)
+    assert ir_stage.fused_ir_stage.launches == launches  # the CPU runs the plain version
+    anchors = tpurpn_torch.generate_anchors(thp, device="cpu")
+    expect = generate_proposals(*decode_outputs(anchors, reg, cls, thp), thp)
+    for k in expect:
+        torch.testing.assert_close(out[k], expect[k], rtol=0, atol=0)
+    nv = int(out["num_valid"][0])
+    assert 0 < nv <= thp.test_nms_topn and not out["roi_boxes"][0, nv:].any()
+
+    ref_boxes, ref_scores = j_decode_outputs(j_generate_anchors(hp), ref_reg, ref_cls, hp)
+    ref = j_generate_proposals(ref_boxes, ref_scores, hp)
+    boxes, scores = decode_outputs(anchors, torch.from_numpy(np.array(ref_reg)),
+                                   torch.from_numpy(np.array(ref_cls)), thp)
+    got = proposal.fused_proposals(boxes, scores, min(thp.pre_nms_topn, thp.total_anchors),
+                                   thp.nms_iou_threshold, thp.test_nms_topn)
+    np.testing.assert_array_equal(got["num_valid"].numpy(), np.asarray(ref["num_valid"]))
+    np.testing.assert_allclose(got["roi_boxes"].numpy(), np.asarray(ref["roi_boxes"]),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got["roi_scores"].numpy(), np.asarray(ref["roi_scores"]),
+                               atol=1e-6, rtol=0)
 
 
 def _random_candidates(rng, B, N):
@@ -413,10 +552,24 @@ def test_cluster_size_names_an_entry_and_needs_the_kernels(no_nvcc):
 def test_wrappers_reject_inputs_their_kernels_do_not_take(no_nvcc):
     weights, blocks = _meta_stage()
     for x in (_meta((2, 32, 32, 64)), _meta((2, 32, 32, 96), torch.bfloat16),
-              _meta((2, 32, 16, 64), torch.bfloat16),
-              _meta((2, 40, 40, 64), torch.bfloat16)):  # a row of more than 32 pixels
+              _meta((2, 32, 16, 64), torch.bfloat16)):
         with pytest.raises(ValueError):
             ir_stage.fused_ir_stage(x, weights, blocks)
+    # a block spec outside the stage's domain, and splits it refuses, on
+    # the card and on the CPU alike
+    x40 = _meta((2, 40, 40, 64), torch.bfloat16)
+    w48 = (_meta((48, 288), torch.bfloat16), _meta((288,)), _meta((9, 288)), _meta((288,)),
+           _meta((288, 48), torch.bfloat16), _meta((48,)))
+    with pytest.raises(ValueError, match="takes the blocks"):
+        ir_stage.fused_ir_stage(_meta((2, 40, 40, 48), torch.bfloat16), w48,
+                                ((48, 288, 48, True),))
+    with pytest.raises(ValueError, match="does not divide"):
+        ir_stage.fused_ir_stage(x40, weights, blocks, c_exp_split=5)
+    with pytest.raises(ValueError, match="one \\(c_exp, c_out\\)"):
+        ir_stage.fused_ir_stage(x40, weights, blocks, c_exp_split=2)
+    with pytest.raises(ValueError, match="does not divide"):
+        ir_stage.fused_ir_stage(torch.zeros((1, 9, 9, 32), dtype=torch.bfloat16),
+                                *_stage_of(("block_4", "block_5")), c_exp_split=5)
     for boxes, scores, pre in (
         (_meta((2, 500, 4), torch.float64), _meta((2, 500)), 400),
         (_meta((2, 500, 4)), _meta((2, 400)), 400),

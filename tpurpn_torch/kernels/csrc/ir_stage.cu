@@ -1,9 +1,13 @@
 // Fused MobileNetV2 inverted-residual blocks for Hopper (sm_90a).
 //
 // Replaces tpurpn/kernels/ir_stage_pallas.py::fused_ir_stage (body
-// _ir_stage_kernel): blocks 7-12 plus block_13_expand at 32x32. Each block is
-// 1x1 expand -> ReLU6 -> 3x3 depthwise SAME -> ReLU6 -> 1x1 project
-// (-> + residual); the tail is the 1x1 expand alone. The wrapper
+// _ir_stage_kernel): stride-1 blocks at any S, for every spec
+// pack_stage_weights builds up to the RPN tap (24 -> 24, block_2; 32 -> 32,
+// blocks 4-5; 64 -> 64, blocks 7-9; 64 -> 96, block 10; 96 -> 96, blocks
+// 11-12) and expand-only tails at c_in 24, 32, 64 or 96 (block_13_expand on
+// the serving path, blocks 7-12 + block_13_expand: S = 32 at 500 px, 40 at
+// 640). Each block is 1x1 expand -> ReLU6 -> 3x3 depthwise SAME -> ReLU6 ->
+// 1x1 project (-> + residual); the tail is the 1x1 expand alone. The wrapper
 // (tpurpn_torch/kernels/ir_stage.py) launches ir_block once per block and
 // ir_expand once for the tail, all on one stream.
 //
@@ -13,27 +17,45 @@
 // depthwise ReLU6 and after the project bias; the residual add is a bf16 add.
 // The library is built with -fmad=false (for the proposal kernel's exact
 // IoU), so the depthwise's multiply-accumulates are explicit __fmaf_rn.
+// dw_input_bf16 (tpurpn's option): the expanded activation is rounded to
+// bf16 at its store and the taps to bf16; each tap product (exact in f32,
+// two 8-bit significands) is rounded to bf16 and summed in f32 in tpurpn's
+// tap order, without an FMA. c_exp_split (tpurpn's VMEM-footprint option)
+// is not a kernel parameter: tpurpn sums one f32 partial projection per
+// group of expanded channels, and this kernel sums every chunk into one f32
+// accumulation, which differs from it by f32 summation order alone.
 //
-// What bounds it: at B=128 the stage is 127 GFLOP of 1x1 products (0.129 ms
-// at 989 TFLOP/s bf16) and 6.3 GFLOP of f32 depthwise taps (0.095 ms at
-// 67 TFLOP/s), against about 168 MB of activation traffic (0.05 ms at
-// 3.35 TB/s). The tensor cores and the f32 units run at the same time, so
-// the bound is the larger: the tensor cores' operations, 0.129 ms.
+// What bounds it: at B=128, S=32 the serving stage is 127 GFLOP of 1x1
+// products (0.129 ms at 989 TFLOP/s bf16) and 6.3 GFLOP of f32 depthwise
+// taps (0.095 ms at 67 TFLOP/s), against about 168 MB of activation traffic
+// (0.05 ms at 3.35 TB/s). The tensor cores and the f32 units run at the same
+// time, so the bound is the larger: the tensor cores' operations, 0.129 ms;
+// at S = 40 the work grows with the pixels (1600 / 1024): 0.201 ms.
 //
 // Design. A thread block (two warpgroups, 256 threads) takes R = 8 output
 // rows of one image and the 10 input rows around them (the halo's expand is
-// recomputed: 1.25x), laid out as 32 pixels a row whatever S (S <= 32), so
-// 320 halo'd pixels are five 64-row M-tiles and 256 output pixels four. It
-// walks the expanded channels in chunks of CH = 64:
+// recomputed: 1.25x), laid out as 32 pixel slots a row, so 320 halo'd
+// pixels are five 64-row M-tiles and 256 output pixels four. At S <= 32 slot
+// j is image column j and columns -1 and S are the SAME padding. At S > 32
+// the grid gains a column-strip axis: strip s of nstrips balanced strips
+// outputs columns [s*sw, s*sw + sw) (sw <= 30) from slots 1..sw, and slot j
+// holds image column s*sw - 1 + j, so the halo columns come from the
+// neighbouring strip's image columns (their expand recomputed) or are the
+// SAME zeros at the image's edge. A pixel's arithmetic (its K order in each
+// 1x1 product and its 9-tap order) does not depend on where it falls. The
+// serving instance at S <= 32 without dw_input_bf16 knows its one strip at
+// compile time (STRIPS = false): with the strip read at run time the stage
+// was slower on the card. The block walks the expanded channels in chunks
+// of CH = 64:
 //
 //   1. expand: wgmma m64n32k16, A = the input rows in shared memory, B = the
 //      chunk's expand weights; warpgroup g computes channels [32g, 32g + 32)
 //      of the chunk at all 320 pixels; + bias, ReLU6, zero outside the image
 //      (SAME padding) -> an f32 tile in shared memory;
 //   2. depthwise from registers: a thread owns one channel and a strip of 8
-//      columns and walks down the 8 rows with the 3x3 window in registers
-//      (10 shared loads per 8 outputs, no division); f32 __fmaf_rn; the bf16
-//      result goes straight into the swizzled A operand of the projection;
+//      slots and walks down the 8 rows with the 3x3 window in registers
+//      (10 shared loads per 8 outputs, no division); the bf16 result goes
+//      straight into the swizzled A operand of the projection;
 //   3. project: wgmma m64n{C_OUT}k16, A = that tile, B = the chunk's project
 //      weights; warpgroup g owns output M-tiles 2g and 2g + 1, and its
 //      accumulators stay in registers across every chunk.
@@ -44,13 +66,20 @@
 // and the projection stays in flight across the next chunk's expand (its
 // first wgmma wait retires it).
 //
+// Narrow specs: wgmma's K step is 16 channels and the operand planes are 32
+// wide, so c_in = 24 is held as 32 (zero channels in the staged input, zero
+// rows in the pack); c_exp = 144 is held as 192, three chunks, the pad
+// channels with zero expand and project weights (and, read as zero here,
+// biases and taps), so they stay 0 through ReLU6 and add nothing. c_out 24
+// and 32 are wgmma widths (m64n24, m64n32).
+//
 // Weights: the wrapper packs each block once (cached) into per-chunk
 // images of exactly the shared-memory layout below, [expand weights of the
 // chunk | project weights of the chunk], contiguous. The entries take the
 // pack's element count and chunk width and refuse a pack of another layout. One thread copies a
 // chunk with one cp.async.bulk (no tensor map, so no libcuda) into a ring
 // of two stages under mbarriers: chunk c + 1 streams in while chunk c
-// computes. A chunk is 16-24 KB, a multiple of 16 bytes, 16-byte aligned.
+// computes. A chunk is 7-24 KB, a multiple of 512 bytes.
 //
 // Operand layouts: every wgmma operand is K-major bf16 with the 64-byte
 // swizzle. C_IN = 96 is 192 bytes a row, not a multiple of the 128-byte
@@ -64,25 +93,30 @@
 // rows, depthwise output) are followed by fence.proxy.async before the
 // barrier.
 //
-// Shared memory at R = 8, CH = 64 (the 96 -> 96 block, the largest):
-//   input rows   10 x 32 x 96 bf16  61,440 B
-//   expand tile  320 x 64 f32       81,920 B
-//   dw output    256 x 64 bf16      32,768 B
-//   2 stages     2 x 24,576 B       49,152 B
-//   = 225,280 B + 1,024 B alignment slack + barriers, of 232,448 B: one
-//   block per SM. 64 -> 64 takes 185,344 B and 64 -> 96 193,536 B.
+// Shared memory at R = 8, CH = 64: input rows 10 x 32 x K_IN bf16, the f32
+// expand tile 320 x 64 (81,920 B), the dw output 256 x 64 bf16 (32,768 B),
+// two weight stages; + 1,024 B alignment slack + barriers, of 232,448 B:
+//   96 -> 96  61,440 + 81,920 + 32,768 + 2 x 24,576 = 225,280 B (largest)
+//   64 -> 96  40,960 + 81,920 + 32,768 + 2 x 20,480 = 196,608 B
+//   64 -> 64  40,960 + 81,920 + 32,768 + 2 x 16,384 = 188,416 B
+//   32 -> 32  20,480 + 81,920 + 32,768 + 2 x  8,192 = 151,552 B
+//   24 -> 24  20,480 + 81,920 + 32,768 + 2 x  7,168 = 149,504 B (K_IN 32)
+// one block per SM in every case.
 // Outputs are staged in shared memory (in the free expand tile, or a
 // 32 KB tile in the tail) and written 16 bytes a thread along each pixel.
-// The expand-only tail: 8 rows (256 pixels) of 96 channels (49,152 B), two
-// stages of 64 output channels (2 x 12,288 B) and the 32,768 B output tile,
-// 108 KB: two blocks per SM; its output is 151 MB at B = 128.
+// The expand-only tail takes 256 consecutive pixels of an image a block
+// (flat: it has no halo, so any S): the input (256 x K_IN bf16, 49,152 B at
+// 96), two stages of 64 output channels (2 x 12,288 B at 96) and the
+// 32,768 B output tile, 108 KB at most: two blocks per SM; its output is
+// 151 MB at B = 128, S = 32.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int R = 8;                 // output rows per thread block
-constexpr int kCols = 32;            // pixels a row in shared memory (S <= 32)
+constexpr int kCols = 32;            // pixel slots a row in shared memory
+constexpr int kStrip = kCols - 2;    // output columns of a strip at S > 32
 constexpr int P1 = (R + 2) * kCols;  // halo'd pixels: 5 M-tiles of 64
 constexpr int P = R * kCols;         // output pixels: 4 M-tiles
 constexpr int CH = 64;               // expand channels per chunk
@@ -92,6 +126,10 @@ constexpr int kStages = 2;           // weight ring
 constexpr int kAlign = 1024;         // slack to align the dynamic shared memory
 
 __device__ __forceinline__ float relu6f(float v) { return fminf(fmaxf(v, 0.0f), 6.0f); }
+
+// Channels as the kernel holds them: whole 32-channel planes of input,
+// whole chunks of expanded channels.
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(f32_to_bf16(lo)) |
@@ -171,6 +209,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 // both bf16 from shared memory through descriptors a and b; the fragment of
 // thread t of the warpgroup: d[4j + 2h + e] is row 16 (t / 32) + (t % 32) / 4
 // + 8h, column 8j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[12], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -222,20 +271,39 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
 }
 
 // Load image rows [first_row, first_row + rows) of x (S x S x C_IN bf16,
-// NHWC) into xs (rows * 32 pixels, swizzled planes), 16 bytes at a time;
-// pixels outside the image are zero. Fenced for wgmma; the caller syncs.
-template <int C_IN>
+// NHWC), slot j of a row holding image column cbase + j, into xs (rows * 32
+// pixels, swizzled planes of K_IN channels), 16 bytes at a time; pixels
+// outside the image and channels from C_IN to K_IN are zero. Fenced for
+// wgmma; the caller syncs.
+template <int C_IN, int K_IN>
 __device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ xb, unsigned char* xs,
-                                          int first_row, int rows, int S) {
-  constexpr int Q = C_IN / 8;  // 16-byte pieces a pixel
+                                          int first_row, int rows, int S, int cbase) {
+  constexpr int Q = K_IN / 8;  // 16-byte pieces a pixel
   const int np = rows * kCols;
   for (int i = threadIdx.x; i < np * Q; i += kThreads) {
     const int p = i / Q, q = i % Q;
-    const int row = first_row + p / kCols, col = p % kCols;
+    const int row = first_row + p / kCols, col = cbase + p % kCols;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0 && row < S && col < S)
+    if (8 * q < C_IN && row >= 0 && row < S && col >= 0 && col < S)
       v = *reinterpret_cast<const uint4*>(xb + ((size_t)row * S + col) * C_IN + 8 * q);
     *reinterpret_cast<uint4*>(xs + sw64(np, p, 8 * q)) = v;
+  }
+  fence_proxy_async();
+}
+
+// Load pixels [f0, f0 + P) of an image of n pixels (C_IN bf16 each) into xs
+// (P pixels, swizzled planes of K_IN channels); pixels past n and channels
+// from C_IN to K_IN are zero. Fenced for wgmma; the caller syncs.
+template <int C_IN, int K_IN>
+__device__ __forceinline__ void load_flat(const __nv_bfloat16* __restrict__ xb, unsigned char* xs,
+                                          int f0, int n) {
+  constexpr int Q = K_IN / 8;
+  for (int i = threadIdx.x; i < P * Q; i += kThreads) {
+    const int p = i / Q, q = i % Q;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (8 * q < C_IN && f0 + p < n)
+      v = *reinterpret_cast<const uint4*>(xb + (size_t)(f0 + p) * C_IN + 8 * q);
+    *reinterpret_cast<uint4*>(xs + sw64(P, p, 8 * q)) = v;
   }
   fence_proxy_async();
 }
@@ -243,7 +311,7 @@ __device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ xb, 
 // Start (and commit) warpgroup wg's expand of M-tile mt: channels
 // [32wg, 32wg + 32) of the chunk in stage we_s at halo'd pixels
 // [64mt, 64mt + 64), into zeroed accumulators.
-template <int C_IN>
+template <int K_IN>
 __device__ __forceinline__ void expand_tile(float (&acc)[16], const unsigned char* xs,
                                             const unsigned char* we_s, int mt, int wg) {
 #pragma unroll
@@ -251,7 +319,7 @@ __device__ __forceinline__ void expand_tile(float (&acc)[16], const unsigned cha
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < C_IN / 16; ++ks) {
+  for (int ks = 0; ks < K_IN / 16; ++ks) {
     const int koff = (ks & 1) * 32;
     wgmma_bf16(acc, desc_sw64(smem_u32(xs + (ks >> 1) * P1 * 64 + mt * 64 * 64 + koff)),
                desc_sw64(smem_u32(we_s + (ks >> 1) * CH * 64 + 32 * wg * 64 + koff)));
@@ -267,43 +335,78 @@ __device__ __forceinline__ void stage_word(uint32_t* ot, int p, int w, uint32_t 
   ot[p * RSW + (w ^ ((p & 7) << 2))] = v;
 }
 
-// Copy the staged tile out, 16 bytes a thread, consecutive threads along a
-// pixel: pixel p (image row r0 + p / 32, column p % 32) goes to bf16
-// channels [c0, c0 + 8 * PIECES) of its row of `ld` channels in img.
+// The staged piece k (8 channels) of pixel p, as a 16-byte word.
+template <int RSW>
+__device__ __forceinline__ uint4 staged_piece(const uint32_t* ot, int p, int k) {
+  return reinterpret_cast<const uint4*>(ot)[p * (RSW / 4) + (k ^ (p & 7))];
+}
+
+// Copy a block's staged tile out, 16 bytes a thread, consecutive threads
+// along a pixel: slot p (tile row r0 + p / 32, image column cbase + p % 32)
+// goes to bf16 channels [0, 8 * PIECES) of its pixel of `ld` channels in
+// img, for the slots [olo, ohi) of each row inside the image.
 template <int RSW, int PIECES>
-__device__ __forceinline__ void store_tile(const uint32_t* ot, __nv_bfloat16* img, int ld, int c0,
-                                           int r0, int S) {
+__device__ __forceinline__ void store_tile(const uint32_t* ot, __nv_bfloat16* img, int ld, int r0,
+                                           int cbase, int olo, int ohi, int S) {
   for (int i = threadIdx.x; i < P * PIECES; i += kThreads) {
     const int p = i / PIECES, k = i % PIECES;
-    const int row = r0 + p / kCols, col = p % kCols;
-    if (row < S && col < S)
-      *reinterpret_cast<uint4*>(img + ((size_t)row * S + col) * ld + c0 + 8 * k) =
-          reinterpret_cast<const uint4*>(ot)[p * (RSW / 4) + (k ^ (p & 7))];
+    const int row = r0 + p / kCols, slot = p % kCols;
+    if (row < S && slot >= olo && slot < ohi)
+      *reinterpret_cast<uint4*>(img + ((size_t)row * S + cbase + slot) * ld + 8 * k) =
+          staged_piece<RSW>(ot, p, k);
   }
 }
 
 template <int C_IN, int C_OUT>
 constexpr size_t block_smem_bytes() {
-  return (size_t)P1 * C_IN * 2 + (size_t)P1 * CH * 4 + (size_t)P * CH * 2 +
-         (size_t)kStages * (CH * C_IN + C_OUT * CH) * 2 + kStages * 8 + kAlign;
+  constexpr int K_IN = round_up(C_IN, 32);
+  return (size_t)P1 * K_IN * 2 + (size_t)P1 * CH * 4 + (size_t)P * CH * 2 +
+         (size_t)kStages * (CH * K_IN + C_OUT * CH) * 2 + kStages * 8 + kAlign;
 }
 
-template <int C_IN, int C_OUT, bool RESIDUAL>
+// The strip of thread block x of a block row: the image column of slot 0
+// and the output slots [olo, ohi). One strip at S <= 32 (slot j = column
+// j); otherwise nstrips strips of sw <= kStrip columns, outputs at slots
+// 1..sw and the halo columns beside them.
+struct Strip {
+  int cbase, olo, ohi;
+};
+__device__ __forceinline__ Strip strip_of(int s, int nstrips, int sw, int S) {
+  if (nstrips == 1) return {0, 0, S};
+  return {s * sw - 1, 1, 1 + min(sw, S - s * sw)};
+}
+
+// A parameter of expanded channel ch (of C_EXP_REAL real ones, held as
+// C_EXP): 0 on the pad channels.
+template <int C_EXP_REAL, int C_EXP>
+__device__ __forceinline__ float exp_param(const float* __restrict__ v, int ch) {
+  if constexpr (C_EXP_REAL == C_EXP) return v[ch];
+  else return ch < C_EXP_REAL ? v[ch] : 0.0f;
+}
+
+// One full block over one strip of R rows. DW_BF16: tpurpn's dw_input_bf16.
+// STRIPS:
+// column strips (any S); without, one strip at S <= 32 with the strip's
+// bounds known at compile time, the serving stage's instance at 500 px.
+template <int C_IN, int C_OUT, bool RESIDUAL, bool DW_BF16, bool STRIPS>
 __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
     const unsigned char* __restrict__ pack, const float* __restrict__ be,
     const float* __restrict__ kdw, const float* __restrict__ bdw, const float* __restrict__ bp,
-    int S) {
-  constexpr int C_EXP = 6 * C_IN;
+    int S, int nstrips, int sw) {
+  constexpr int K_IN = round_up(C_IN, 32);                // input channels held
+  constexpr int C_EXP_REAL = 6 * C_IN;
+  constexpr int C_EXP = round_up(C_EXP_REAL, CH);         // expanded channels held
   constexpr int NCHUNK = C_EXP / CH;
-  constexpr int WE_BYTES = CH * C_IN * 2;                 // expand weights of a chunk
+  constexpr int WE_BYTES = CH * K_IN * 2;                 // expand weights of a chunk
   constexpr int CHUNK_BYTES = WE_BYTES + C_OUT * CH * 2;  // + project weights
   constexpr int NH = C_OUT / 2;                           // accumulators of one M-tile
   static_assert(NCHUNK >= kStages, "the ring is filled before the loop");
+  static_assert(CHUNK_BYTES % 512 == 0, "stages stay 512-byte aligned");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* xs = align_smem(smem_raw);                        // [P1][C_IN] planes
+  unsigned char* xs = align_smem(smem_raw);                        // [P1][K_IN] planes
   // [P1][CH] f32; (pixel p, channel c) at p * CH + (c ^ ((p & 7) << 2))
-  float* hs = reinterpret_cast<float*>(xs + P1 * C_IN * 2);
+  float* hs = reinterpret_cast<float*>(xs + P1 * K_IN * 2);
   unsigned char* h2 = reinterpret_cast<unsigned char*>(hs + P1 * CH);  // [P][CH] planes
   unsigned char* stage = h2 + P * CH * 2;                          // kStages x chunk
   uint64_t* full = reinterpret_cast<uint64_t*>(stage + kStages * CHUNK_BYTES);
@@ -311,7 +414,8 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int wg = t >> 7, wi = warp & 3;  // warpgroup, warp within it
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * R;
+  const int r0 = (STRIPS ? blockIdx.x / nstrips : blockIdx.x) * R;
+  const Strip st = STRIPS ? strip_of(blockIdx.x % nstrips, nstrips, sw, S) : Strip{0, 0, S};
 
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
@@ -319,14 +423,14 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
     for (int s = 0; s < kStages; ++s)
       bulk_load(stage + s * CHUNK_BYTES, pack + (size_t)s * CHUNK_BYTES, CHUNK_BYTES, &full[s]);
   }
-  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, r0 - 1, R + 2, S);
+  load_rows<C_IN, K_IN>(x + (size_t)b * S * S * C_IN, xs, r0 - 1, R + 2, S, st.cbase);
   __syncthreads();
 
   float y0[NH], y1[NH];  // projection of M-tiles 2wg and 2wg + 1
 #pragma unroll
   for (int i = 0; i < NH; ++i) y0[i] = y1[i] = 0.0f;
 
-  // the depthwise thread's channel and strip of columns
+  // the depthwise thread's channel and strip of slots
   const int dc = 32 * (warp & 1) + lane, col0 = 8 * (warp >> 1);
 
   for (int c = 0; c < NCHUNK; ++c) {
@@ -338,24 +442,24 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
 
     // 1. expand: channels [32wg, 32wg + 32) of the chunk at every halo'd pixel.
     //    Thread (wi, lane) holds pixels 64mt + 16wi + g + 8h (g = lane / 4):
-    //    image row r0 - 1 + 2mt + wi / 2, column 16 (wi % 2) + g + 8h, and
+    //    tile row r0 - 1 + 2mt + wi / 2, slot 16 (wi % 2) + g + 8h, and
     //    channels 32wg + 8j + 2 (lane % 4) + e, stored at channel ^ 4g.
     float bias[8];
     int chs[8];
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
       const int ch = 32 * wg + 8 * (v >> 1) + 2 * (lane & 3) + (v & 1);
-      bias[v] = be[c0 + ch];
+      bias[v] = exp_param<C_EXP_REAL, C_EXP>(be, c0 + ch);
       chs[v] = ch ^ ((lane >> 2) << 2);
     }
     // Tile mt + 1 is started before tile mt is stored (two accumulator sets),
     // and the first wait also retires the previous chunk's projection.
     float acc[2][16];
-    expand_tile<C_IN>(acc[0], xs, we_s, 0, wg);
+    expand_tile<K_IN>(acc[0], xs, we_s, 0, wg);
 #pragma unroll
     for (int mt = 0; mt < P1 / 64; ++mt) {
       if (mt + 1 < P1 / 64) {
-        expand_tile<C_IN>(acc[(mt + 1) & 1], xs, we_s, mt + 1, wg);
+        expand_tile<K_IN>(acc[(mt + 1) & 1], xs, we_s, mt + 1, wg);
         wgmma_wait<1>();
       } else {
         wgmma_wait<0>();
@@ -364,15 +468,22 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
       const int row = r0 - 1 + 2 * mt + (wi >> 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = 16 * (wi & 1) + (lane >> 2) + 8 * h;
-        const bool inside = row >= 0 && row < S && col < S;  // SAME zero padding of h
+        const int col = st.cbase + 16 * (wi & 1) + (lane >> 2) + 8 * h;
+        // SAME zero padding of h
+        const bool inside = row >= 0 && row < S && (!STRIPS || col >= 0) && col < S;
         float* hp = hs + (64 * mt + 16 * wi + (lane >> 2) + 8 * h) * CH;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            hp[chs[2 * j + e]] =
-                inside ? relu6f(acc[mt & 1][4 * j + 2 * h + e] + bias[2 * j + e]) : 0.0f;
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (DW_BF16)
+              hp[chs[2 * j + e]] =
+                  inside ? round_bf16(relu6f(acc[mt & 1][4 * j + 2 * h + e] + bias[2 * j + e]))
+                         : 0.0f;
+            else
+              hp[chs[2 * j + e]] =
+                  inside ? relu6f(acc[mt & 1][4 * j + 2 * h + e] + bias[2 * j + e]) : 0.0f;
+          }
       }
     }
     __syncthreads();  // hs holds the chunk; every warpgroup is done with chunk c - 1
@@ -383,14 +494,18 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
                 CHUNK_BYTES, &full[(c + 1) % kStages]);
 
     // 2. 3x3 depthwise (stride 1, SAME) + bias + ReLU6 -> bf16 into h2. The
-    //    strip's pixel columns col0 - 1 + i have i - 1 as their low 3 bits,
-    //    so every swizzle below is known at compile time but for dc.
+    //    strip's slots col0 - 1 + i have i - 1 as their low 3 bits, so every
+    //    swizzle below is known at compile time but for dc. Slots -1 and 32
+    //    are never an output's neighbour inside the image: zero.
     {
       float tap[9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) tap[k] = kdw[k * C_EXP + c0 + dc];
-      const float bias = bdw[c0 + dc];
-      const int hs0 = col0 * CH;  // pixel col0 of row 0 in the expand tile
+      for (int k = 0; k < 9; ++k) {
+        const float v = exp_param<C_EXP_REAL, C_EXP>(kdw + k * C_EXP_REAL, c0 + dc);
+        tap[k] = DW_BF16 ? round_bf16(v) : v;
+      }
+      const float bias = exp_param<C_EXP_REAL, C_EXP>(bdw, c0 + dc);
+      const int hs0 = col0 * CH;  // slot col0 of row 0 in the expand tile
       unsigned char* h2t = h2 + (dc >> 5) * P * 64 + col0 * 64 + ((dc & 7) << 1);
       const int q = (dc >> 3) & 3;  // dc's 16-byte piece in its plane row
       float win[3][10];
@@ -399,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
         float(&w)[10] = win[r % 3];
 #pragma unroll
         for (int i = 0; i < 10; ++i) {
-          const bool in = (i > 0 || col0 > 0) && (i < 9 || col0 < kCols - 8);  // SAME columns
+          const bool in = (i > 0 || col0 > 0) && (i < 9 || col0 < kCols - 8);  // slots 0..31
           w[i] = in ? hs[hs0 + (r * kCols + i - 1) * CH + (dc ^ (((i + 7) & 7) << 2))] : 0.0f;
         }
         if (r < 2) continue;
@@ -410,8 +525,13 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
 #pragma unroll
           for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx)
-              acc = __fmaf_rn(win[(orow + dy) % 3][i + dx], tap[dy * 3 + dx], acc);
+            for (int dx = 0; dx < 3; ++dx) {
+              const float hv = win[(orow + dy) % 3][i + dx];
+              if constexpr (DW_BF16)  // bf16 product, f32 sum, in tpurpn's tap order
+                acc = __fadd_rn(acc, round_bf16(__fmul_rn(hv, tap[dy * 3 + dx])));
+              else
+                acc = __fmaf_rn(hv, tap[dy * 3 + dx], acc);
+            }
           // = h2 + sw64(P, orow * kCols + col0 + i, dc)
           *reinterpret_cast<__nv_bfloat16*>(h2t + (orow * kCols + i) * 64 +
                                             ((q ^ ((i >> 1) & 3)) << 4)) =
@@ -465,28 +585,32 @@ __global__ void __launch_bounds__(kThreads, 1) ir_block_kernel(
     }
   }
   __syncthreads();
-  store_tile<64, C_OUT / 8>(ot, out + (size_t)b * S * S * C_OUT, C_OUT, 0, r0, S);
+  store_tile<64, C_OUT / 8>(ot, out + (size_t)b * S * S * C_OUT, C_OUT, r0, st.cbase, st.olo,
+                            st.ohi, S);
 }
 
-// The expand-only tail (block_13_expand): out = bf16(ReLU6(x @ we + be)),
-// R rows of one image a block, NC output channels a chunk; warpgroup g owns
-// M-tiles 2g and 2g + 1.
-template <int C_IN>
+// The expand-only tail: out = bf16(ReLU6(x @ we + be)), P consecutive
+// pixels of one image a block (no halo: the image as one flat run), NC
+// output channels a chunk; warpgroup g owns M-tiles 2g and 2g + 1. FULL:
+// c_exp is whole chunks; without, the last chunk is partial (c_exp = 144)
+// and its missing channels are neither read nor written.
+template <int C_IN, bool FULL>
 __global__ void __launch_bounds__(kThreads, 2) ir_expand_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
     const unsigned char* __restrict__ pack, const float* __restrict__ be, int S, int C_EXP) {
-  constexpr int CHUNK_BYTES = NC * C_IN * 2;
+  constexpr int K_IN = round_up(C_IN, 32);
+  constexpr int CHUNK_BYTES = NC * K_IN * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* xs = align_smem(smem_raw);  // [P][C_IN] planes
-  unsigned char* stage = xs + P * C_IN * 2;
+  unsigned char* xs = align_smem(smem_raw);  // [P][K_IN] planes
+  unsigned char* stage = xs + P * K_IN * 2;
   uint32_t* ot = reinterpret_cast<uint32_t*>(stage + kStages * CHUNK_BYTES);  // [P][NC / 2]
   uint64_t* full = reinterpret_cast<uint64_t*>(ot + P * NC / 2);
 
   const int t = threadIdx.x, lane = t & 31;
   const int wg = t >> 7, wi = (t >> 5) & 3;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * R;
-  const int nchunk = C_EXP / NC;
+  const int f0 = blockIdx.x * P, npix = S * S;
+  const int nchunk = (C_EXP + NC - 1) / NC;
 
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
@@ -494,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 2) ir_expand_kernel(
     for (int s = 0; s < kStages && s < nchunk; ++s)
       bulk_load(stage + s * CHUNK_BYTES, pack + (size_t)s * CHUNK_BYTES, CHUNK_BYTES, &full[s]);
   }
-  load_rows<C_IN>(x + (size_t)b * S * S * C_IN, xs, r0, R, S);
+  load_flat<C_IN, K_IN>(x + (size_t)b * npix * C_IN, xs, f0, npix);
   __syncthreads();
 
   for (int c = 0; c < nchunk; ++c) {
@@ -508,7 +632,7 @@ __global__ void __launch_bounds__(kThreads, 2) ir_expand_kernel(
     fence_regs(acc1);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < C_IN / 16; ++ks) {
+    for (int ks = 0; ks < K_IN / 16; ++ks) {
       const int koff = (ks & 1) * 32;
       const uint64_t db = desc_sw64(smem_u32(we_s + (ks >> 1) * NC * 64 + koff));
       const unsigned char* a = xs + (ks >> 1) * P * 64 + (2 * wg) * 64 * 64 + koff;
@@ -532,28 +656,81 @@ __global__ void __launch_bounds__(kThreads, 2) ir_expand_kernel(
 #pragma unroll
         for (int j = 0; j < NC / 8; ++j) {
           const int ch = c * NC + 8 * j + 2 * (lane & 3);
+          const float b0 = FULL || ch < C_EXP ? be[ch] : 0.0f;
+          const float b1 = FULL || ch + 1 < C_EXP ? be[ch + 1] : 0.0f;
           stage_word<NC / 2>(ot, p, (ch - c * NC) / 2,
-                             pack_bf16(relu6f(a[4 * j + 2 * h] + be[ch]),
-                                       relu6f(a[4 * j + 2 * h + 1] + be[ch + 1])));
+                             pack_bf16(relu6f(a[4 * j + 2 * h] + b0),
+                                       relu6f(a[4 * j + 2 * h + 1] + b1)));
         }
       }
     }
     __syncthreads();
-    store_tile<NC / 2, NC / 8>(ot, out + (size_t)b * S * S * C_EXP, C_EXP, c * NC, r0, S);
+    // the chunk's channels that exist, 16 bytes a thread along each pixel
+    const int pieces = min(NC, C_EXP - c * NC) / 8;
+    __nv_bfloat16* img = out + (size_t)b * npix * C_EXP + c * NC;
+    for (int i = threadIdx.x; i < P * (NC / 8); i += kThreads) {
+      const int p = i / (NC / 8), k = i % (NC / 8);
+      if ((FULL || k < pieces) && f0 + p < npix)
+        *reinterpret_cast<uint4*>(img + (size_t)(f0 + p) * C_EXP + 8 * k) =
+            staged_piece<NC / 2>(ot, p, k);
+    }
   }
 }
 
-template <int C_IN, int C_OUT, bool RESIDUAL>
+// Strips of an S-wide row: (count, width). One strip of S slots up to 32
+// columns; above, the fewest strips of at most kStrip columns, balanced
+// (S = 40: two of 20), none of them empty.
+void strips(int S, int* nstrips, int* sw) {
+  const int n = S <= kCols ? 1 : (S + kStrip - 1) / kStrip;
+  *sw = (S + n - 1) / n;
+  *nstrips = (S + *sw - 1) / *sw;
+}
+
+template <int C_IN, int C_OUT, bool RESIDUAL, bool DW_BF16, bool STRIPS = true>
 cudaError_t launch_block(const __nv_bfloat16* x, __nv_bfloat16* out, const unsigned char* pack,
                          const float* be, const float* kdw, const float* bdw, const float* bp,
                          int B, int S, cudaStream_t stream) {
-  auto kernel = ir_block_kernel<C_IN, C_OUT, RESIDUAL>;
+  auto kernel = ir_block_kernel<C_IN, C_OUT, RESIDUAL, DW_BF16, STRIPS>;
   const size_t smem = block_smem_bytes<C_IN, C_OUT>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + R - 1) / R, B);
-  kernel<<<grid, kThreads, smem, stream>>>(x, out, pack, be, kdw, bdw, bp, S);
+  int nstrips, sw;
+  strips(S, &nstrips, &sw);
+  const dim3 grid((S + R - 1) / R * nstrips, B);
+  kernel<<<grid, kThreads, smem, stream>>>(x, out, pack, be, kdw, bdw, bp, S, nstrips, sw);
+  return cudaGetLastError();
+}
+
+// The three instances of one spec: dw_input_bf16 or not with strips, and
+// the plain one at S <= 32 without.
+template <int C_IN, int C_OUT, bool RESIDUAL>
+cudaError_t launch_spec(const __nv_bfloat16* x, __nv_bfloat16* out, const unsigned char* pack,
+                        const float* be, const float* kdw, const float* bdw, const float* bp,
+                        int B, int S, bool dw_bf16, cudaStream_t stream) {
+  if (dw_bf16)
+    return launch_block<C_IN, C_OUT, RESIDUAL, true>(x, out, pack, be, kdw, bdw, bp, B, S,
+                                                     stream);
+  if (S <= kCols)
+    return launch_block<C_IN, C_OUT, RESIDUAL, false, false>(x, out, pack, be, kdw, bdw, bp, B,
+                                                             S, stream);
+  return launch_block<C_IN, C_OUT, RESIDUAL, false>(x, out, pack, be, kdw, bdw, bp, B, S, stream);
+}
+
+template <int C_IN>
+cudaError_t launch_expand(const void* x, void* out, const void* pack, const float* be, int B,
+                          int S, int c_exp, cudaStream_t stream) {
+  constexpr int K_IN = round_up(C_IN, 32);
+  auto kernel = c_exp % NC ? ir_expand_kernel<C_IN, false> : ir_expand_kernel<C_IN, true>;
+  const size_t smem = (size_t)P * K_IN * 2 + kStages * (size_t)NC * K_IN * 2 +
+                      (size_t)P * NC * 2 + kStages * 8 + kAlign;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S * S + P - 1) / P, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+      static_cast<const unsigned char*>(pack), be, S, c_exp);
   return cudaGetLastError();
 }
 
@@ -562,49 +739,55 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // One full inverted-residual block at stride 1: (B, S, S, c_in) bf16 ->
-// (B, S, S, c_out) bf16, expansion 6. `pack` holds the block's per-chunk
+// (B, S, S, c_out) bf16, any S >= 1. `pack` holds the block's per-chunk
 // weight images (kernels/ir_stage.py: kernel_pack), `pack_elems` bf16 in
-// chunks of `chunk` expanded channels. Instances: the 64->64 and 96->96
-// residual blocks and the 64->96 block without residual.
+// chunks of `chunk` expanded channels, padded to the held widths. Specs:
+// (c_in, c_exp, c_out, residual) = (24, 144, 24, 1), (32, 192, 32, 1),
+// (64, 384, 64, 1), (64, 384, 96, 0), (96, 576, 96, 1); others are refused.
+// dw_bf16: tpurpn's dw_input_bf16.
 TPURPN_EXPORT int ir_block(const void* x, void* out, const void* pack, int pack_elems, int chunk,
                            const float* be, const float* kdw, const float* bdw, const float* bp,
-                           int B, int S, int c_in, int c_out, int residual,
-                           cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > kCols || chunk != CH || pack_elems != 6 * c_in * (c_in + c_out) ||
-      !aligned16(x) || !aligned16(out) || !aligned16(pack))
+                           int B, int S, int c_in, int c_exp, int c_out, int residual,
+                           int dw_bf16, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || chunk != CH || c_exp != 6 * c_in ||
+      pack_elems != round_up(c_exp, CH) * (round_up(c_in, 32) + c_out) || !aligned16(x) ||
+      !aligned16(out) || !aligned16(pack))
     return cudaErrorInvalidValue;
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto ob = static_cast<__nv_bfloat16*>(out);
   auto pk = static_cast<const unsigned char*>(pack);
+  const bool dw = dw_bf16 != 0;
+  if (c_in == 24 && c_out == 24 && residual)
+    return launch_spec<24, 24, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, dw, stream);
+  if (c_in == 32 && c_out == 32 && residual)
+    return launch_spec<32, 32, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, dw, stream);
   if (c_in == 64 && c_out == 64 && residual)
-    return launch_block<64, 64, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
+    return launch_spec<64, 64, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, dw, stream);
   if (c_in == 64 && c_out == 96 && !residual)
-    return launch_block<64, 96, false>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
+    return launch_spec<64, 96, false>(xb, ob, pk, be, kdw, bdw, bp, B, S, dw, stream);
   if (c_in == 96 && c_out == 96 && residual)
-    return launch_block<96, 96, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, stream);
+    return launch_spec<96, 96, true>(xb, ob, pk, be, kdw, bdw, bp, B, S, dw, stream);
   return cudaErrorInvalidValue;
 }
 
-// The expand-only tail: (B, S, S, 96) bf16 -> (B, S, S, c_exp) bf16; `pack`
-// is `pack_elems` bf16 in chunks of `chunk` output channels.
+// The expand-only tail: (B, S, S, c_in) bf16 -> (B, S, S, c_exp) bf16, any
+// S >= 1, c_in in {24, 32, 64, 96} and c_exp = 6 c_in; `pack` is
+// `pack_elems` bf16 in chunks of `chunk` output channels, padded to the
+// held widths.
 TPURPN_EXPORT int ir_expand(const void* x, void* out, const void* pack, int pack_elems,
                             int chunk, const float* be, int B, int S, int c_in, int c_exp,
                             cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > kCols || c_in != 96 || c_exp <= 0 || c_exp % NC != 0 ||
-      chunk != NC || pack_elems != c_in * c_exp || !aligned16(x) || !aligned16(out) ||
-      !aligned16(pack))
+  if (B <= 0 || S <= 0 || c_exp != 6 * c_in || chunk != NC ||
+      pack_elems != round_up(c_in, 32) * round_up(c_exp, NC) || !aligned16(x) ||
+      !aligned16(out) || !aligned16(pack))
     return cudaErrorInvalidValue;
-  auto kernel = ir_expand_kernel<96>;
-  const size_t smem = (size_t)P * 96 * 2 + kStages * (size_t)NC * 96 * 2 + (size_t)P * NC * 2 +
-                      kStages * 8 + kAlign;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + R - 1) / R, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-      static_cast<const unsigned char*>(pack), be, S, c_exp);
-  return cudaGetLastError();
+  switch (c_in) {
+    case 24: return launch_expand<24>(x, out, pack, be, B, S, c_exp, stream);
+    case 32: return launch_expand<32>(x, out, pack, be, B, S, c_exp, stream);
+    case 64: return launch_expand<64>(x, out, pack, be, B, S, c_exp, stream);
+    case 96: return launch_expand<96>(x, out, pack, be, B, S, c_exp, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 TPURPN_EXPORT const char* ir_stage_error_string(int err) {

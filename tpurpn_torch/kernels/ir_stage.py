@@ -1,5 +1,5 @@
-"""Fused inverted-residual stage: MobileNetV2 blocks 7-12 + block_13_expand
-(port of ``tpurpn/kernels/ir_stage_pallas.py``).
+"""Fused inverted-residual stage: stride-1 MobileNetV2 blocks plus an
+optional expand-only tail (port of ``tpurpn/kernels/ir_stage_pallas.py``).
 
 ``fused_ir_stage`` on a CUDA tensor launches the hand-written kernel in
 ``csrc/ir_stage.cu`` (its source note says what bounds it and how it is
@@ -7,16 +7,31 @@ laid out); on a CPU tensor it runs ``fused_ir_stage_plain``, the same
 function in plain PyTorch. There is no fallback: a CUDA tensor the kernel
 does not take raises.
 
+Domain, on both devices: any S >= 1, and the stride-1 block specs that
+``pack_stage_weights`` builds from the backbone up to the RPN tap
+(``BLOCK_SPECS``: block_2, blocks 4-5, 7-9, 10, 11-12) with expand-only
+tails at each of their input widths (``TAIL_SPECS``: 24, 32, 64, 96, as
+block_13_expand or a block's expand conv); serving runs blocks 7-12 +
+block_13_expand (S = 32 at 500 px, 40 at 640). Blocks 14-16 lie past the
+tap and are never built. ``dw_input_bf16`` and ``c_exp_split`` are
+``tpurpn``'s options (``fused_ir_stage``). ``c_exp_split`` only bounds the
+TPU's VMEM: the plain version sums its f32 group partials as ``tpurpn``
+does, and the kernel takes any split ``tpurpn`` takes and computes it in
+one f32 accumulation (another f32 summation order, far below bf16).
+
 The kernel copies its weights chunk by chunk as images of its shared
-memory (``kernel_pack``: K-major bf16, 64-byte swizzle), made once per set
-of weight tensors (``kernel_pack_cached``); ``stage_weights_cached`` keeps
+memory (``kernel_pack``: K-major bf16, 64-byte swizzle, zero-padded to the
+kernel's widths), made once per set of weight tensors
+(``kernel_pack_cached``); ``stage_weights_cached`` keeps
 ``pack_stage_weights``' output until a conv's weight or bias changes.
 
 Numerics, as ``tpurpn``'s kernel: bf16 1x1-conv operands with f32
 accumulation, bias and ReLU6 in f32, the depthwise in f32 over the f32
-expanded activation, bf16 rounding after the depthwise ReLU6 and after the
-project bias, a bf16 residual add. Agreement with the folded flax forward is
-at bf16 tolerance (tests/test_torch_kernels.py).
+expanded activation (or, with ``dw_input_bf16``, bf16 products of the
+bf16-rounded activation and taps summed in f32), bf16 rounding after the
+depthwise ReLU6 and after the project bias, a bf16 residual add. Agreement
+with the folded flax forward and with ``tpurpn``'s kernel is at bf16
+tolerance (tests/test_torch_kernels.py).
 """
 
 from __future__ import annotations
@@ -28,11 +43,19 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..boxes import _round_up
 
 # Static description of one fused block:
 #   (c_in, c_exp, c_out, residual)  — a full inverted residual, or
 #   (c_in, c_exp, None, False)      — expand-only tail (block_13_expand).
 BlockSpec = Tuple[int, int, "int | None", bool]
+
+
+def _tail_conv(bb, name: str) -> torch.nn.Conv2d:
+    """The expand-only tail ``name``: a conv (block_13_expand), or a block
+    whose expand conv then serves as the tail (block_2 -> block_2_expand)."""
+    m = bb.get_submodule(name)
+    return m if isinstance(m, torch.nn.Conv2d) else m.get_submodule(f"{name}_expand")
 
 
 def pack_stage_weights(
@@ -44,6 +67,8 @@ def pack_stage_weights(
     bf16, bp f32 — the layout of ``tpurpn``'s ``pack_stage_weights``.
 
     ``bb`` is the backbone module after ``model.fold_batch_norm``.
+    ``tail_expand`` names block_13_expand, as in ``tpurpn``, or a block whose
+    expand conv is then the tail (the tails at c_in 24, 32 and 64).
     """
     weights: List[torch.Tensor] = []
     blocks: List[BlockSpec] = []
@@ -70,43 +95,99 @@ def pack_stage_weights(
             ]
             blocks.append((we.shape[0], c_exp, wp.shape[1], we.shape[0] == wp.shape[1]))
         if tail_expand is not None:
-            te = bb.get_submodule(tail_expand)
+            te = _tail_conv(bb, tail_expand)
             we = as2d(te)
             weights += [we.to(torch.bfloat16), f32(te.bias)]
             blocks.append((we.shape[0], we.shape[1], None, False))
     return tuple(weights), tuple(blocks)
 
 
+# The blocks the stage takes: the stride-1 inverted residuals (c_in, c_exp,
+# c_out, residual) of MobileNetV2 up to the RPN tap, and expand-only tails
+# (c_in, c_exp, None, False) at their input widths.
+BLOCK_SPECS = ((24, 144, 24, True), (32, 192, 32, True), (64, 384, 64, True),
+               (64, 384, 96, False), (96, 576, 96, True))
+TAIL_SPECS = tuple((c, 6 * c, None, False) for c in (24, 32, 64, 96))
+
+
+def check_stage(blocks: Tuple[BlockSpec, ...], c_exp_split: int = 1) -> None:
+    """Raise ValueError unless ``blocks`` and ``c_exp_split`` are in the
+    stage's domain: every block in BLOCK_SPECS or TAIL_SPECS, each taking
+    the channels the one before gives; ``c_exp_split`` dividing every full
+    block's c_exp, those blocks of one (c_exp, c_out) when it is above 1
+    (``tpurpn``'s asserts)."""
+    if not blocks:
+        raise ValueError("fused_ir_stage needs at least one block")
+    c = blocks[0][0]
+    for spec in blocks:
+        if tuple(spec) not in BLOCK_SPECS + TAIL_SPECS:
+            raise ValueError(f"fused_ir_stage takes the blocks {BLOCK_SPECS} and the "
+                             f"expand-only tails {TAIL_SPECS}, got {tuple(spec)}")
+        if spec[0] != c:
+            raise ValueError(f"block {tuple(spec)} takes {spec[0]} channels, "
+                             f"the block before gives {c}")
+        c = spec[1] if spec[2] is None else spec[2]
+    if not isinstance(c_exp_split, int) or c_exp_split < 1:
+        raise ValueError(f"c_exp_split must be a positive int, got {c_exp_split!r}")
+    full = {(c_exp, c_out) for _, c_exp, c_out, _ in blocks if c_out is not None}
+    for c_exp, _ in full:
+        if c_exp % c_exp_split:
+            raise ValueError(f"c_exp_split {c_exp_split} does not divide c_exp {c_exp}")
+    if c_exp_split > 1 and len(full) != 1:
+        raise ValueError("c_exp_split > 1 needs one (c_exp, c_out) over the full "
+                         f"blocks, got {sorted(full)}")
+
+
 def _relu6(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, 0.0, 6.0)
 
 
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to bf16, kept in f32."""
+    return v.to(torch.bfloat16).float()
+
+
 def fused_ir_stage_plain(
-    x: torch.Tensor, weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...]
+    x: torch.Tensor, weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...],
+    dw_input_bf16: bool = False, c_exp_split: int = 1,
 ) -> torch.Tensor:
     """The stage in plain PyTorch: (B, S, S, c_in) bf16 -> (B, S, S, c_last) bf16.
 
     The 1x1 convs are f32 products of the bf16 operands (exact in f32) with
-    f32 sums; the depthwise sums its 9 taps in the TPU kernel's order.
+    f32 sums; the depthwise sums its 9 taps in the TPU kernel's order. A full
+    block runs expand -> depthwise -> partial projection for each of
+    ``c_exp_split`` groups of expanded channels and sums the f32 partials,
+    as ``tpurpn``'s kernel does. ``dw_input_bf16`` rounds the expanded
+    activation and the taps to bf16 and each tap product to bf16 before the
+    f32 sum.
     """
     B, S, _, _ = x.shape
     wi = 0
     for c_in, c_exp, c_out, residual in blocks:
         we, be = weights[wi], weights[wi + 1]
         wi += 2
-        h = _relu6(x.float() @ we.float() + be)
         if c_out is None:  # expand-only tail
-            x = h.to(torch.bfloat16)
+            x = _relu6(x.float() @ we.float() + be).to(torch.bfloat16)
             continue
         kdw, bdw, wp, bp = weights[wi : wi + 4]
         wi += 4
-        hp = F.pad(h, (0, 0, 1, 1, 1, 1))  # SAME zero padding of H and W
-        acc = torch.zeros_like(h)
-        for dy in range(3):
-            for dx in range(3):
-                acc = acc + hp[:, dy : dy + S, dx : dx + S, :] * kdw[dy * 3 + dx]
-        h2 = _relu6(acc + bdw).to(torch.bfloat16)
-        y = (h2.float() @ wp.float() + bp).to(torch.bfloat16)
+        cw = c_exp // c_exp_split
+        y = torch.zeros((B, S, S, c_out), dtype=torch.float32, device=x.device)
+        for g in range(c_exp_split):
+            sl = slice(g * cw, (g + 1) * cw)
+            h = _relu6(x.float() @ we[:, sl].float() + be[sl])
+            taps = kdw[:, sl]
+            if dw_input_bf16:
+                h, taps = _bf16(h), _bf16(taps)
+            hp = F.pad(h, (0, 0, 1, 1, 1, 1))  # SAME zero padding of H and W
+            acc = torch.zeros_like(h)
+            for dy in range(3):
+                for dx in range(3):
+                    term = hp[:, dy : dy + S, dx : dx + S, :] * taps[dy * 3 + dx]
+                    acc = acc + (_bf16(term) if dw_input_bf16 else term)
+            h2 = _relu6(acc + bdw[sl]).to(torch.bfloat16)
+            y = y + h2.float() @ wp[sl].float()
+        y = (y + bp).to(torch.bfloat16)
         x = (x + y) if residual else y
     return x
 
@@ -116,6 +197,16 @@ def fused_ir_stage_plain(
 # the width and the pack's size and refuse a pack made for other constants.
 CH = 64
 TAIL_NC = 64
+
+
+def kernel_widths(spec: BlockSpec) -> Tuple[int, int]:
+    """(input channels, expanded channels) of ``spec`` as the kernel holds
+    them: c_in up to whole 32-channel planes (24 -> 32), c_exp up to whole
+    chunks (144 -> 192). The pack's padding is zero, which is exact: a zero
+    channel adds nothing to a 1x1 sum, and a zero expanded channel (zero
+    weights, bias and taps) stays 0 through ReLU6 and the depthwise."""
+    c_in, c_exp, c_out, _ = spec
+    return _round_up(c_in, 32), _round_up(c_exp, TAIL_NC if c_out is None else CH)
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,13 +230,6 @@ def _swizzle(m: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _chunk_width(c_exp: int, c_out) -> int:
-    width = TAIL_NC if c_out is None else CH
-    if c_exp % width:
-        raise ValueError(f"c_exp {c_exp} is not a multiple of the chunk width {width}")
-    return width
-
-
 def kernel_pack(
     weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...]
 ) -> Tuple[torch.Tensor, ...]:
@@ -153,15 +237,20 @@ def kernel_pack(
     order and layout the kernel copies into shared memory: for each chunk of
     w expanded channels, the expand weights (w, c_in) and, for a full block,
     the project weights (c_out, w), both K-major and swizzled
-    (``_sw64_index``). Each chunk is one contiguous bulk copy."""
+    (``_sw64_index``), zero-padded to ``kernel_widths``. Each chunk is one
+    contiguous bulk copy."""
     packs = []
     wi = 0
-    for c_in, c_exp, c_out, _ in blocks:
-        w = _chunk_width(c_exp, c_out)
-        n = c_exp // w
-        parts = [_swizzle(weights[wi].t().reshape(n, w, c_in))]
+    for spec in blocks:
+        c_in, c_exp, c_out, _ = spec
+        k_in, n_exp = kernel_widths(spec)
+        w = TAIL_NC if c_out is None else CH
+        n = n_exp // w
+        we = F.pad(weights[wi].t(), (0, k_in - c_in, 0, n_exp - c_exp))  # (n_exp, k_in)
+        parts = [_swizzle(we.reshape(n, w, k_in))]
         if c_out is not None:
-            parts.append(_swizzle(weights[wi + 4].reshape(n, w, c_out).transpose(1, 2)))
+            wp = F.pad(weights[wi + 4], (0, 0, 0, n_exp - c_exp))  # (n_exp, c_out)
+            parts.append(_swizzle(wp.reshape(n, w, c_out).transpose(1, 2)))
         wi += 2 if c_out is None else 6
         packs.append(torch.cat(parts, 1).reshape(-1))
     return tuple(packs)
@@ -219,19 +308,18 @@ def stage_weights_cached(
     storage; see ``_VersionCache`` for what it does not see)."""
     names = [f"{n}.{n}_{part}" for n in block_names
              for part in ("expand", "depthwise", "project")]
-    names += [tail_expand] if tail_expand is not None else []
-    sources = [t for n in names for t in (bb.get_submodule(n).weight, bb.get_submodule(n).bias)]
+    convs = [bb.get_submodule(n) for n in names]
+    convs += [_tail_conv(bb, tail_expand)] if tail_expand is not None else []
+    sources = [t for m in convs for t in (m.weight, m.bias)]
     return _stages.get(sources, lambda: pack_stage_weights(bb, block_names, tail_expand))
 
 
-def _launch(x: torch.Tensor, weights, blocks) -> torch.Tensor:
+def _launch(x: torch.Tensor, weights, blocks, dw_input_bf16: bool) -> torch.Tensor:
     if (x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[1] != x.shape[2]
-            or x.shape[3] != blocks[0][0]):
+            or x.shape[3] != blocks[0][0] or x.shape[0] < 1 or x.shape[1] < 1):
         raise ValueError(f"fused_ir_stage takes (B, S, S, {blocks[0][0]}) bf16, "
                          f"got {x.dtype} {tuple(x.shape)}")
     B, S, _, _ = x.shape
-    if S > 32:
-        raise ValueError(f"fused_ir_stage takes S <= 32, got {S}")
     for w in weights:
         if w.device != x.device or not w.is_contiguous():
             raise ValueError("fused_ir_stage weights must be contiguous, on x's device")
@@ -253,7 +341,8 @@ def _launch(x: torch.Tensor, weights, blocks) -> torch.Tensor:
             out = torch.empty((B, S, S, c_out), dtype=torch.bfloat16, device=x.device)
             code = lib.ir_block(x.data_ptr(), out.data_ptr(), pack.data_ptr(), pack.numel(),
                                 CH, be.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
-                                bp.data_ptr(), B, S, c_in, c_out, int(residual), stream)
+                                bp.data_ptr(), B, S, c_in, c_exp, c_out, int(residual),
+                                int(dw_input_bf16), stream)
         _build.check(lib, "ir_stage", code)
         fused_ir_stage.launches += 1
         x = out
@@ -261,17 +350,24 @@ def _launch(x: torch.Tensor, weights, blocks) -> torch.Tensor:
 
 
 def fused_ir_stage(
-    x: torch.Tensor, weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...]
+    x: torch.Tensor, weights: Tuple[torch.Tensor, ...], blocks: Tuple[BlockSpec, ...],
+    dw_input_bf16: bool = False, c_exp_split: int = 1,
 ) -> torch.Tensor:
-    """Run ``blocks`` fused over ``x`` (B, S, S, c_in0) bf16.
+    """Run ``blocks`` fused over ``x`` (B, S, S, c_in0) bf16, any S >= 1.
 
-    A CUDA tensor goes to the kernel: one ``ir_block`` launch per block plus
-    one ``ir_expand`` for the tail, each counted in ``launches`` (7 for the
-    MobileNetV2 stage). A CPU tensor goes to :func:`fused_ir_stage_plain`.
+    ``tpurpn``'s arguments but ``interpret`` and ``vmem_limit_mb``, which
+    steer the TPU's compiler and mean nothing on the card. ``blocks`` and
+    ``c_exp_split`` must pass :func:`check_stage` (ValueError otherwise, on
+    either device). A CUDA tensor goes to the kernel: one ``ir_block``
+    launch per block plus one ``ir_expand`` for the tail, each counted in
+    ``launches`` (7 for the MobileNetV2 serving stage); the kernel sums the
+    whole projection in one f32 accumulation, whatever ``c_exp_split``. A
+    CPU tensor goes to :func:`fused_ir_stage_plain`.
     """
+    check_stage(blocks, c_exp_split)
     if x.device.type == "cpu":
-        return fused_ir_stage_plain(x, weights, blocks)
-    return _launch(x, weights, blocks)
+        return fused_ir_stage_plain(x, weights, blocks, dw_input_bf16, c_exp_split)
+    return _launch(x, weights, blocks, dw_input_bf16)
 
 
 fused_ir_stage.launches = 0
