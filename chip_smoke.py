@@ -25,9 +25,12 @@ them:
    keep inside a chunk, an image of -inf scores, max_output > pre); then
    the IR stage over the rest of its domain (``ir_stage_domain``: the
    serving stage at S = 33, 40, 47, 63, blocks 4-5 at S = 63, 80 with
-   c_exp_split 1-3, block_2 at S = 125, 160, each with dw_input_bf16 off
-   and on, a tail at each c_in) and its column strips: an S = 40 (and
-   block_2's S = 125) run bit-equal to a 32-wide crop's inside the crop;
+   c_exp_split 1-3, block_2 at S = 52, 125, 160, each with dw_input_bf16
+   off and on, a tail at each c_in; each case's tiling from
+   ``ir_block_plan``, flat runs and column strips both) and its tilings:
+   the S = 40 and 63 runs (flat) and block_2's S = 125 run (strips)
+   bit-equal to a 32-wide crop's inside the crop, across thread-block
+   boundaries of the wide run;
 3. runs ``make_predict_fn(fast=True)`` on B bf16 images and
    ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8 375x500
    frames, with every kernel's launch count set to 0 just before each run and
@@ -38,6 +41,9 @@ them:
    14,400 anchors; uint8 480x640 frames take the s2d route), 7 IR-stage
    and 1 proposal launches a batch, heads within the bf16 tolerance of the
    unfused folded forward, ms a batch, busy time and where the time goes;
+   the IR stage at the 640, 750 and 1000 px taps (S = 40, 47, 63, batch B)
+   against its plain version, and its flat tiling bit-equal to and timed
+   beside column strips;
 4. holds the target kernel (config 3: VGG16 anchors N=8,649, B=8, M=8)
    and the IoU-matching kernel against their plain versions: labels and
    indices bit for bit, delta rows 2-3 (logf) at rel 1e-6; then M=64 with
@@ -331,33 +337,47 @@ def ir_stage_bound(x, weights, blocks):
 
 # The IR stage's kernels, as the profiler names them.
 IR_KERNELS = ("ir_block_kernel", "ir_expand_kernel")
-KSTRIP = 30  # output columns a strip of the IR-stage kernel takes at S > 32
 
 
-def ir_strips(S):
-    """(strips, width) of an S-wide row in the IR-stage kernel (csrc/ir_stage.cu:
-    strips): one strip up to 32 columns, else balanced strips of <= 30."""
-    n = 1 if S <= 32 else -(-S // KSTRIP)
-    sw = -(-S // n)
-    return -(-S // sw), sw
+@contextlib.contextmanager
+def strips_forced(ir_stage_module):
+    """Within the block, the IR-stage wrapper tiles every S with column
+    strips (``strip_plan`` in place of ``ir_block_plan``): the comparison of
+    the plan's tiling with the strips it replaces, never a main path."""
+    plan = ir_stage_module.ir_block_plan
+    ir_stage_module.ir_block_plan = ir_stage_module.strip_plan
+    try:
+        yield
+    finally:
+        ir_stage_module.ir_block_plan = plan
+
+
+def block_of(plan, y, x, S):
+    """The thread block of an image that outputs pixel (y, x) under ``plan``."""
+    if plan.tiling == "flat":
+        return (y * S + x) // plan.width
+    return (y // 8) * plan.strips + x // plan.width
 
 
 def ir_domain_phase(torch, bb, gen, dev):
     """The IR-stage kernel against its plain version over its domain beyond
     the serving stage at S <= 32 (random bf16 inputs in [-1, 1), B = 2, the
     seeded folded weights, the bf16 tolerance): the serving stage at S = 33,
-    40, 47, 63; blocks 4-5 at S = 63, 80 with c_exp_split 1, 2, 3; block_2
-    at S = 125, 160; each with dw_input_bf16 off and on; splits whose groups
-    are not whole 16-channel steps (blocks 4-5 at 8, block_2 at 2 and 4); a
-    tail at each c_in (the tails at 24, 32 and 64 are block_2's, block_4's
-    and block_7's expand convs).
-    Then tiling: the serving stage at S = 40 and on a 32-wide crop of its
-    input holding a strip seam of the S = 40 run inside, bit for bit on the
-    crop's pixels 6 or more from its edge (six 3x3 depthwise reach 6);
-    block_2 the same at S = 125 (reach 1)."""
+    40, 47, 63 (flat); blocks 4-5 at S = 63 (flat), 80 (strips) with
+    c_exp_split 1, 2, 3; block_2 at S = 52 (flat) and 125, 160 (strips);
+    each with dw_input_bf16 off and on; splits whose groups are not whole
+    16-channel steps (blocks 4-5 at 8, block_2 at 2 and 4); a tail at each
+    c_in (the tails at 24, 32 and 64 are block_2's, block_4's and block_7's
+    expand convs). Each case records the tiling and blocks an image of
+    ``ir_block_plan``.
+    Then tiling: the serving stage at S = 40 and 63 (flat) and block_2 at
+    S = 125 (strips), each against a 32-wide crop of its input (one strip)
+    holding boundaries between the S run's thread blocks inside, bit for bit
+    on the crop's pixels 6 or more from its edge (six 3x3 depthwise reach 6;
+    block_2's one reaches 1)."""
     from tpurpn_torch.inference import _FUSED_BLOCKS as SERVING_BLOCKS
     from tpurpn_torch.kernels.ir_stage import (fused_ir_stage, fused_ir_stage_plain,
-                                               pack_stage_weights)
+                                               ir_block_plan, pack_stage_weights)
 
     cases = [(f"serving_S{S}_dw{int(dw)}", SERVING_BLOCKS, "block_13_expand", S, 64,
               {"dw_input_bf16": dw}) for S in (33, 40, 47, 63) for dw in (False, True)]
@@ -365,7 +385,7 @@ def ir_domain_phase(torch, bb, gen, dev):
                {"dw_input_bf16": dw, "c_exp_split": split})
               for S in (63, 80) for dw in (False, True) for split in (1, 2, 3)]
     cases += [(f"block2_S{S}_dw{int(dw)}", ("block_2",), None, S, 24, {"dw_input_bf16": dw})
-              for S in (125, 160) for dw in (False, True)]
+              for S in (52, 125, 160) for dw in (False, True)]
     cases += [(f"blocks45_S63_dw{int(dw)}_split8", ("block_4", "block_5"), None, 63, 32,
                {"dw_input_bf16": dw, "c_exp_split": 8}) for dw in (False, True)]
     cases += [(f"block2_S125_dw0_split{split}", ("block_2",), None, 125, 24,
@@ -375,6 +395,7 @@ def ir_domain_phase(torch, bb, gen, dev):
                                  ("block_13_expand", 96))]
     out = {"phase": "ir_stage_domain", "B": 2,
            "tolerance": f"rel {TOL_REL} of max(1, |ref|max)"}
+    tilings = set()
     with torch.no_grad():
         for name, names, tail, S, c_in, opts in cases:
             weights, blocks = pack_stage_weights(bb, names, tail_expand=tail)
@@ -387,15 +408,22 @@ def ir_domain_phase(torch, bb, gen, dev):
             err, ok = close_err(got, ref)
             require(ok, f"IR stage kernel vs plain, {name}: max abs err {err}")
             out[f"{name}_max_abs_err"] = err
+            plan = ir_block_plan(S)
+            if any(spec[2] is not None for spec in blocks):
+                tilings.add((plan.tiling, opts.get("dw_input_bf16", False)))
+                out[f"{name}_tiling"] = {"tiling": plan.tiling, "blocks_per_image": plan.blocks}
+        require(tilings == {(t, dw) for t in ("flat", "strips") for dw in (False, True)},
+                f"the domain cases take both tilings with dw_input_bf16 off and on: {tilings}")
 
         for name, names, tail, S, off, reach in (
                 ("serving_S40", SERVING_BLOCKS, "block_13_expand", 40, 4, 6),
+                ("serving_S63", SERVING_BLOCKS, "block_13_expand", 63, 16, 6),
                 ("block2_S125", ("block_2",), None, 125, 40, 1)):
             weights, blocks = pack_stage_weights(bb, names, tail_expand=tail)
-            n, sw = ir_strips(S)
-            seams = [s * sw for s in range(1, n)]
-            lo, hi = off + reach, off + 32 - reach  # the crop's inner columns in the S run
-            require(any(lo < c < hi for c in seams), f"no strip seam of {seams} in [{lo}, {hi})")
+            plan = ir_block_plan(S)
+            lo, hi = off + reach, off + 32 - reach  # the crop's inner pixels in the S run
+            inside = {block_of(plan, y, x, S) for y in range(lo, hi) for x in range(lo, hi)}
+            require(len(inside) > 1, f"no thread-block boundary of {plan} in [{lo}, {hi})^2")
             x = (torch.rand((2, S, S, blocks[0][0]), generator=gen, device=dev) * 2 - 1).to(
                 torch.bfloat16)
             whole = fused_ir_stage(x, weights, blocks)
@@ -404,11 +432,50 @@ def ir_domain_phase(torch, bb, gen, dev):
             b = crop[:, reach:32 - reach, reach:32 - reach]
             require(torch.equal(a, b), f"IR stage tiling, {name}: the S={S} run and its 32-wide "
                     f"crop differ by {max_diff(torch, a, b)} inside the crop")
-            out[f"tiling_{name}"] = {"strips": n, "strip_width": sw, "seams_inside": [
-                c for c in seams if lo < c < hi], "crop_offset": off, "reach": reach,
-                "compared_pixels": int(a.shape[0] * a.shape[1] * a.shape[2]),
-                "bit_equal": True}
+            out[f"tiling_{name}"] = {"tiling": plan.tiling, "blocks_per_image": plan.blocks,
+                                     "strips": plan.strips, "width": plan.width,
+                                     "blocks_inside": len(inside), "crop_offset": off,
+                                     "reach": reach,
+                                     "compared_pixels": int(a.shape[0] * a.shape[1] * a.shape[2]),
+                                     "bit_equal": True}
     return out
+
+
+def ir_wide_stage(torch, ir_stage_module, x, weights, blocks):
+    """The IR stage on ``x`` (B, S, S, c_in) at the tiling of the plan: the
+    kernel against its plain version (bf16 tolerance) and against the same
+    stage tiled in column strips (bit for bit: a pixel's arithmetic does not
+    depend on its tile); launches, ms (CUDA events), device ms of the
+    kernels' own launches, plain ms, bound, and the strips' ms beside."""
+    fn = ir_stage_module.fused_ir_stage
+    S = x.shape[1]
+    plan, strips = ir_stage_module.ir_block_plan(S), ir_stage_module.strip_plan(S)
+    got = fn(x, weights, blocks)
+    err, ok = close_err(got, ir_stage_module.fused_ir_stage_plain(x, weights, blocks))
+    require(ok and got.shape[:3] == x.shape[:3], f"IR stage at S={S}: max abs err {err}")
+    with strips_forced(ir_stage_module):
+        striped = fn(x, weights, blocks)
+    require(torch.equal(got, striped), f"IR stage at S={S}: {plan.tiling} and strips differ by "
+            f"{max_diff(torch, got, striped)}")
+    launches = fn.launches
+    fn(x, weights, blocks)
+    launches = fn.launches - launches
+    ms = time_ms(torch, lambda: fn(x, weights, blocks), 20)
+    device, wrapper_device = kernel_device_ms(torch, lambda: fn(x, weights, blocks),
+                                              IR_KERNELS, fn)
+    with strips_forced(ir_stage_module):
+        strips_ms = time_ms(torch, lambda: fn(x, weights, blocks), 20)
+        strips_device, _ = kernel_device_ms(torch, lambda: fn(x, weights, blocks),
+                                            IR_KERNELS, fn)
+    plain_ms = time_ms(torch, lambda: ir_stage_module.fused_ir_stage_plain(x, weights, blocks), 3)
+    bound, by = ir_stage_bound(x, weights, blocks)
+    return {"S": S, "B": x.shape[0], "tiling": plan.tiling, "blocks_per_image": plan.blocks,
+            "width": plan.width, "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": device, "wrapper_device_ms": wrapper_device, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by,
+            "strips": {"blocks_per_image": strips.blocks, "strips": strips.strips,
+                       "width": strips.width, "ms": strips_ms, "device_ms": strips_device,
+                       "bit_equal": True}}
 
 
 def proposal_bound(torch, boxes, scores, pre, max_output, thr):
@@ -1176,8 +1243,8 @@ def serving_640_phase(torch, args, dev, kernels, smi):
     from tpurpn_torch.anchors import generate_anchors
     from tpurpn_torch.data import preprocess_batch
     from tpurpn_torch.inference import _FUSED_BLOCKS as SERVING_BLOCKS
-    from tpurpn_torch.kernels.ir_stage import (fused_ir_stage, fused_ir_stage_plain,
-                                               stage_weights_cached)
+    from tpurpn_torch.kernels import ir_stage as ir_stage_module
+    from tpurpn_torch.kernels.ir_stage import stage_weights_cached
     from tpurpn_torch.kernels.proposal import fused_proposals, fused_proposals_plain
     from tpurpn_torch.model import apply_rpn_head, to_device
     from tpurpn_torch.predict import decode_outputs, make_predict_fn
@@ -1230,14 +1297,18 @@ def serving_640_phase(torch, args, dev, kernels, smi):
                     f"640 fast heads vs the unfused forward, {name}: max abs err {err}")
             out[f"{name}_max_abs_err"] = err
 
-        # the kernels at this size against their plain versions
+        # the kernels at this size against their plain versions; the IR stage
+        # also at the 750 and 1000 px taps (S = 47, 63) on random inputs
         feat6 = folded.backbone(images, stop_after_block=6).contiguous()
         weights, blocks = stage_weights_cached(folded.backbone, SERVING_BLOCKS,
                                                tail_expand="block_13_expand")
-        feat = fused_ir_stage(feat6, weights, blocks)
-        ir_err, ir_ok = close_err(feat, fused_ir_stage_plain(feat6, weights, blocks))
-        require(feat.shape == (B, 40, 40, 576) and ir_ok,
-                f"IR stage at S=40: {tuple(feat.shape)}, max abs err {ir_err}")
+        feat = ir_stage_module.fused_ir_stage(feat6, weights, blocks)
+        require(feat.shape == (B, 40, 40, 576), f"IR stage at S=40: {tuple(feat.shape)}")
+        wide = {40: ir_wide_stage(torch, ir_stage_module, feat6, weights, blocks)}
+        for S in (47, 63):
+            x = (torch.rand((B, S, S, 64), generator=dgen, device=dev) * 2 - 1).to(torch.bfloat16)
+            wide[S] = ir_wide_stage(torch, ir_stage_module, x, weights, blocks)
+            del x
         anchors = generate_anchors(hp, dev)
         boxes, scores = decode_outputs(anchors, ref_reg, ref_cls, hp)
         pk = fused_proposals(boxes, scores, pre, thr, topn)
@@ -1245,14 +1316,6 @@ def serving_640_phase(torch, args, dev, kernels, smi):
         for k in pp:
             require(torch.equal(pk[k], pp[k]), f"proposal kernel vs plain at N=14,400: {k}")
 
-        reset(kernels)
-        fused_ir_stage(feat6, weights, blocks)
-        ir_launches = counts(kernels)["ir_stage"]
-        ir_ms = time_ms(torch, lambda: fused_ir_stage(feat6, weights, blocks), 20)
-        ir_device, ir_wrapper_device = kernel_device_ms(
-            torch, lambda: fused_ir_stage(feat6, weights, blocks), IR_KERNELS, fused_ir_stage)
-        ir_plain_ms = time_ms(torch, lambda: fused_ir_stage_plain(feat6, weights, blocks), 3)
-        ir_bound, ir_by = ir_stage_bound(feat6, weights, blocks)
         pr_ms = time_ms(torch, lambda: fused_proposals(boxes, scores, pre, thr, topn), 20)
         pr_device, pr_wrapper_device = kernel_device_ms(
             torch, lambda: fused_proposals(boxes, scores, pre, thr, topn), ("proposal_kernel",),
@@ -1261,7 +1324,7 @@ def serving_640_phase(torch, args, dev, kernels, smi):
         stages = {
             "prefix_to_block_6": time_ms(
                 torch, lambda: folded.backbone(images, stop_after_block=6), 5),
-            "ir_stage_kernel": ir_ms,
+            "ir_stage_kernel": wide[40]["ms"],
             "head": time_ms(torch, lambda: apply_rpn_head(folded, feat), 5),
             "decode": time_ms(torch, lambda: decode_outputs(anchors, ref_reg, ref_cls, hp), 5),
             "proposals_wrapper": pr_ms,
@@ -1274,9 +1337,8 @@ def serving_640_phase(torch, args, dev, kernels, smi):
                 "ms_per_batch": ms, "img_per_s": B / ms * 1e3, "device_busy_ms": busy,
                 "device_ops": ops, "device_idle_share": None if busy is None else 1.0 - busy / ms}
     out["stages_ms"] = stages
-    out["ir_stage_s40"] = {"launches": ir_launches, "max_abs_err": ir_err, "ms": ir_ms,
-                           "device_ms": ir_device, "wrapper_device_ms": ir_wrapper_device,
-                           "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by}
+    for S, stage in wide.items():
+        out[f"ir_stage_s{S}"] = stage
     out["proposals_n14400"] = {"ms": pr_ms, "device_ms": pr_device,
                                "wrapper_device_ms": pr_wrapper_device, "bound_ms": pr_bound,
                                "bound_by": pr_by, "match": "bit-exact",
@@ -2075,7 +2137,8 @@ def main() -> int:
          "plain_ms": ir_plain_ms, "bound_ms": ir_bound, "bound_by": ir_by,
          "library_ms": None,
          "max_abs_err_domain": max(v for k, v in ir_domain.items() if k.endswith("max_abs_err")),
-         "s40": s640["ir_stage_s40"]},
+         "s40": s640["ir_stage_s40"], "s47": s640["ir_stage_s47"],
+         "s63": s640["ir_stage_s63"]},
         {"name": "fused_proposals", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/proposal.cu",
          "replaces": "tpurpn/kernels/proposal_pallas.py:352",

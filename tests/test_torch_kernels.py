@@ -337,6 +337,172 @@ def test_fast_serving_at_a_tap_wider_than_32_matches_tpurpn():
                                atol=1e-6, rtol=0)
 
 
+def _strip_tiling(S):
+    """(blocks an image, strips, width) of column strips at S: one strip of S
+    up to 32 columns, else the fewest of at most 30 columns, balanced."""
+    if S <= 32:
+        return -(-S // 8), 1, S
+    strips = -(-S // 30)
+    width = -(-S // strips)
+    strips = -(-S // width)
+    return -(-S // 8) * strips, strips, width
+
+
+def test_ir_block_plan_tiles_every_S():
+    """ir_block_plan for S = 1..160: each tiling's blocks cover an image's S^2
+    pixels exactly once, strips fit 32 slots with their halo, a flat run's
+    staged range (n + 2 S + 2) fits the 320-pixel tile, spans 3 image rows or
+    more and holds at most 32 units of 8 columns (the fewest blocks that
+    do), the plan takes the
+    tiling of fewer blocks an image (strips on a tie) and takes strips at
+    S <= 32 and at block_2's S = 125 and 160, flat at the 640, 750 and
+    1000 px serving taps (S = 40, 47, 63)."""
+
+    def fits(n, S):
+        shape = [ir_stage.flat_units(S, n, f0) for f0 in range(0, S * S, n)]
+        return n + 2 * (S + 1) <= 320 and all(r >= 3 and u <= 32 for r, u in shape)
+
+    tiling = {}
+    for S in range(1, 161):
+        plan = ir_stage.ir_block_plan(S)
+        tiling[S] = plan.tiling
+        blocks, strips, width = _strip_tiling(S)
+        cover = np.zeros((S, S), np.int64)
+        for rb in range(-(-S // 8)):
+            for st in range(strips):
+                cover[8 * rb:8 * rb + 8, st * width:min(st * width + width, S)] += 1
+        assert (cover == 1).all() and width <= (32 if strips == 1 else 30), S
+        flat = ir_stage.flat_plan(S)
+        n_max = 320 - 2 * (S + 1)
+        if flat is None:  # no run fits: one that spans 3 rows has 2 S + 1 pixels or more
+            assert S <= 32 or n_max < 1 or not any(
+                fits(-(-S * S // b), S) for b in range(-(-S * S // n_max), S * S // (2 * S) + 1))
+        else:
+            n = flat.width
+            assert flat.strips == 0 and flat.blocks == -(-S * S // n) and fits(n, S), S
+            assert flat.blocks == 1 or not fits(-(-S * S // (flat.blocks - 1)), S), S
+            cover = np.zeros(S * S, np.int64)
+            for b in range(flat.blocks):
+                cover[b * n:(b + 1) * n] += 1
+            assert (cover == 1).all(), S
+        if flat is not None and flat.blocks < blocks:
+            assert plan == flat, S
+        else:
+            assert plan == ("strips", blocks, strips, width), S
+    assert all(tiling[S] == "strips" for S in list(range(1, 33)) + [80, 125, 160])
+    assert tiling[40] == tiling[47] == tiling[63] == "flat"
+    assert ir_stage.ir_block_plan(40) == ("flat", 7, 0, 229)
+    assert ir_stage.ir_block_plan(32) == ("strips", 4, 1, 32)
+    with pytest.raises(ValueError):
+        ir_stage.ir_block_plan(0)
+
+
+KSLOTS, PITCH = 332, 65  # csrc/ir_stage.cu: kSlots, kPitch of the flat tiling's expand tile
+
+
+def _flat_word(c):
+    """csrc/ir_stage.cu: flat_word, channel c's word in a slot."""
+    return (c & 0x21) | ((c >> 2) & 6) | ((c << 2) & 0x18)
+
+
+def _flat_depthwise_model(h, taps, S, n):
+    """csrc/ir_stage.cu's flat tiling of the depthwise, index for index: per
+    thread block the slot table (pitch S + 1, a zero slot between image rows,
+    65 words a slot, channel c at word flat_word(c)), the 32 units of 8
+    columns (the first row's from its first output, then k-major down the
+    rows, a unit past a row's last output shifted back to end there; 8 a
+    thread in two streams of 4, a unit below the one before keeping two
+    window rows; every window inside the tile), each unit's outputs in h2
+    rows 8u + i and the table of the pixel each row holds (-1: none).
+    h (S*S, 64) expanded values, taps (9, 64); returns the depthwise sums
+    (S*S, 64) and how often each pixel was written."""
+    word = _flat_word(np.arange(64))
+    assert sorted(word) == list(range(64))
+    out = np.zeros((S * S, 64))
+    written = np.zeros(S * S, np.int64)
+    for blk in range(-(-S * S // n)):
+        f0 = blk * n
+        g0 = f0 - S - 1
+        tile = np.zeros(KSLOTS * PITCH)
+        y0 = (g0 + 2 * S) // S - 2
+        x0 = g0 - y0 * S
+        for p in range(320):
+            slot = p + 1 + (x0 + p) // S
+            assert slot < KSLOTS
+            g = g0 + p
+            tile[slot * PITCH + word] = h[g] if 0 <= g < S * S else 0.0
+        nv = min(n, S * S - f0)
+        ya, ca = divmod(f0, S)
+        yb, cb = divmod(f0 + nv - 1, S)
+        nseg, first, last = (S + 7) >> 3, (S - ca + 7) >> 3, (cb + 8) >> 3
+        assert yb - ya >= 2
+        unit_sb, pix_of = [], []
+        for t in range(32):
+            y, k, u = -1, 0, t
+            if u < first:
+                y, k = ya, u
+            else:
+                u -= first
+                for kk in range(nseg):
+                    rows = yb - ya - 1 + (kk < last)
+                    if u < rows:
+                        y, k = ya + 1 + u, kk
+                        break
+                    u -= rows
+            hi, ns = (cb if y == yb else S - 1), (ca if y == ya else 0) + 8 * k
+            st = max(ca, min(ns, hi - 7)) if y == ya else min(ns, hi - 7)
+            unit_sb.append((y - 1 - y0) * (S + 1) + st - x0 if y >= 0 else 0)
+            for i in range(8):
+                xc = st + i
+                mine = y >= 0 and ns <= xc < ns + 8 and xc <= hi
+                pix_of.append(y * S + xc - f0 if mine else -1)
+
+        def window(sb):
+            assert 0 <= sb and sb + 10 <= KSLOTS
+            return np.stack([tile[(sb + i) * PITCH + word] for i in range(10)])
+
+        h2 = np.zeros((256, 64))
+        for qt, first in [(qt, first) for qt in range(4) for first in (0, 4)]:
+            win = [None] * 3
+            for r in range(first, first + 4):
+                sb = unit_sb[8 * qt + r]
+                if r == first or sb != unit_sb[8 * qt + r - 1] + S + 1:
+                    win[r % 3], win[(r + 1) % 3] = window(sb), window(sb + S + 1)
+                win[(r + 2) % 3] = window(sb + 2 * (S + 1))
+                rows3 = [win[r % 3], win[(r + 1) % 3], win[(r + 2) % 3]]
+                for i in range(8):
+                    acc = np.zeros(64)
+                    for dy in range(3):
+                        for dx in range(3):
+                            acc = acc + rows3[dy][i + dx] * taps[dy * 3 + dx]
+                    h2[64 * qt + 8 * r + i] = acc
+        for m, j in enumerate(pix_of):
+            if j >= 0:
+                out[f0 + j] = h2[m]
+                written[f0 + j] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("S", [33, 40, 47, 52, 63, 68])
+def test_flat_tiling_model_computes_the_same_depthwise(S):
+    """The flat tiling's geometry (model above, at the plan's n) gives every
+    pixel once, the SAME depthwise summed in tpurpn's tap order, bit for bit
+    (the taps and values are exact in float64, the order is the same)."""
+    plan = ir_stage.ir_block_plan(S)
+    assert plan.tiling == "flat"
+    rng = np.random.default_rng(S)
+    h = rng.uniform(0, 6, (S * S, 64))
+    taps = rng.normal(size=(9, 64))
+    got, written = _flat_depthwise_model(h, taps, S, plan.width)
+    assert (written == 1).all()
+    hp = np.pad(h.reshape(S, S, 64), ((1, 1), (1, 1), (0, 0)))
+    ref = np.zeros((S, S, 64))
+    for dy in range(3):
+        for dx in range(3):
+            ref = ref + hp[dy:dy + S, dx:dx + S] * taps[dy * 3 + dx]
+    np.testing.assert_array_equal(got, ref.reshape(S * S, 64))
+
+
 def _random_candidates(rng, B, N):
     b = np.zeros((B, N, 4), np.float32)
     b[..., :2] = rng.uniform(0, 0.6, (B, N, 2))

@@ -39,7 +39,7 @@ SIGNATURES = {
         "proposal_select": (P, P, P, P, P, P, I, I, I, I, F, P),
     },
     "ir_stage": {
-        "ir_block": (P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, I, P),
+        "ir_block": (P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
         "ir_expand": (P, P, P, I, I, P, I, I, I, I, P),
     },
     "targets": {

@@ -19,6 +19,14 @@ TPU's VMEM: the plain version sums its f32 group partials as ``tpurpn``
 does, and the kernel takes any split ``tpurpn`` takes and computes it in
 one f32 accumulation (another f32 summation order, far below bf16).
 
+A full block's kernel tiles the image as :func:`ir_block_plan` says, the
+one place that decides it from S alone: one strip of S columns at S <= 32
+(the 500 px serving stage), flat runs of consecutive pixels at the S > 32
+where they take fewer thread blocks an image than column strips (S = 40,
+47 and 63 of the 640, 750 and 1000 px serving taps), and column strips
+beyond (block_2 at S = 125 and 160). A pixel's result does not depend on
+the tiling, bit for bit.
+
 The kernel copies its weights chunk by chunk as images of its shared
 memory (``kernel_pack``: K-major bf16, 64-byte swizzle, zero-padded to the
 kernel's widths), made once per set of weight tensors
@@ -37,7 +45,7 @@ tolerance (tests/test_torch_kernels.py).
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -198,6 +206,84 @@ def fused_ir_stage_plain(
 CH = 64
 TAIL_NC = 64
 
+# The full-block kernel's tile: R output rows of 32 pixel slots (strips of at
+# most 30 outputs beside their halo columns at S > 32), or TILE halo'd
+# pixels in a flat run whose outputs are at most UNITS units of 8 columns of
+# one image row; ir_block refuses a tiling that does not fit them.
+R, KCOLS, KSTRIP, TILE, UNITS = 8, 32, 30, 320, 32
+
+
+class BlockPlan(NamedTuple):
+    """How the full-block kernel tiles an S x S image (:func:`ir_block_plan`).
+
+    ``tiling`` is ``"strips"`` (``strips`` column strips of ``width`` output
+    columns and R rows a thread block; one strip of S columns at S <= 32) or
+    ``"flat"`` (``width`` consecutive pixels a thread block in row-major
+    order, staged with one image row and one pixel on each side; ``strips``
+    is 0). ``blocks`` is the thread blocks an image."""
+
+    tiling: str
+    blocks: int
+    strips: int
+    width: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def strip_plan(S: int) -> BlockPlan:
+    """Column strips of an S x S image: one strip of S columns up to KCOLS,
+    else the fewest strips of at most KSTRIP columns, balanced (S = 40: two
+    of 20), R rows a thread block."""
+    if S < 1:
+        raise ValueError(f"the IR stage takes S >= 1, got {S}")
+    strips = 1 if S <= KCOLS else _cdiv(S, KSTRIP)
+    width = _cdiv(S, strips)
+    strips = _cdiv(S, width)
+    return BlockPlan("strips", _cdiv(S, R) * strips, strips, width)
+
+
+def flat_units(S: int, n: int, f0: int) -> Tuple[int, int]:
+    """(image rows, units) of the flat run of n pixels from f0 in an S x S
+    image: the units (8 columns of one image row) of its first row from its
+    first column, of each whole row, and of its last row up to its last
+    column. The kernel takes runs over 3 rows or more, of at most UNITS
+    units."""
+    last = min(f0 + n, S * S) - 1
+    rows = last // S - f0 // S + 1
+    return rows, _cdiv(S - f0 % S, 8) + (rows - 2) * _cdiv(S, 8) + _cdiv(last % S + 1, 8)
+
+
+def flat_plan(S: int) -> "BlockPlan | None":
+    """Flat runs over an S x S image at S > KCOLS: the fewest thread blocks
+    whose runs of n = ceil(S^2 / blocks) pixels, with one image row and one
+    pixel on each side, fit the TILE (n + 2 (S + 1) <= TILE) and each span 3
+    image rows or more in at most UNITS units (S = 40: 7 runs of 229); None
+    where no run fits or S <= KCOLS."""
+    n_max = TILE - 2 * (S + 1)
+    if S <= KCOLS or n_max < 1:
+        return None
+    for blocks in range(_cdiv(S * S, n_max), S * S + 1):
+        n = _cdiv(S * S, blocks)
+        shape = [flat_units(S, n, f0) for f0 in range(0, S * S, n)]
+        if all(rows >= 3 and units <= UNITS for rows, units in shape):
+            return BlockPlan("flat", blocks, 0, n)
+        if n <= 2 * S:  # the first run, from column 0, spans 2 rows or fewer
+            return None
+    return None
+
+
+def ir_block_plan(S: int) -> BlockPlan:
+    """The full-block kernel's tiling of an S x S image, the one place it is
+    decided: the tiling of fewer thread blocks an image, strips on a tie. So
+    one strip at S <= 32 (the 500 px serving instance), flat runs at S =
+    33-52 and 61-68 (the 640, 750 and 1000 px serving taps, S = 40, 47, 63,
+    among them), strips elsewhere (S = 80 and up, block_2 at 125 and
+    160)."""
+    strips, flat = strip_plan(S), flat_plan(S)
+    return flat if flat is not None and flat.blocks < strips.blocks else strips
+
 
 def kernel_widths(spec: BlockSpec) -> Tuple[int, int]:
     """(input channels, expanded channels) of ``spec`` as the kernel holds
@@ -325,6 +411,7 @@ def _launch(x: torch.Tensor, weights, blocks, dw_input_bf16: bool) -> torch.Tens
             raise ValueError("fused_ir_stage weights must be contiguous, on x's device")
     lib = _build.load("ir_stage")
     packs = kernel_pack_cached(weights, blocks)
+    plan = ir_block_plan(S)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     x = x.contiguous()
     wi = 0
@@ -341,8 +428,8 @@ def _launch(x: torch.Tensor, weights, blocks, dw_input_bf16: bool) -> torch.Tens
             out = torch.empty((B, S, S, c_out), dtype=torch.bfloat16, device=x.device)
             code = lib.ir_block(x.data_ptr(), out.data_ptr(), pack.data_ptr(), pack.numel(),
                                 CH, be.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
-                                bp.data_ptr(), B, S, c_in, c_exp, c_out, int(residual),
-                                int(dw_input_bf16), stream)
+                                bp.data_ptr(), B, S, plan.strips, plan.width, c_in, c_exp,
+                                c_out, int(residual), int(dw_input_bf16), stream)
         _build.check(lib, "ir_stage", code)
         fused_ir_stage.launches += 1
         x = out
@@ -361,8 +448,11 @@ def fused_ir_stage(
     either device). A CUDA tensor goes to the kernel: one ``ir_block``
     launch per block plus one ``ir_expand`` for the tail, each counted in
     ``launches`` (7 for the MobileNetV2 serving stage); the kernel sums the
-    whole projection in one f32 accumulation, whatever ``c_exp_split``. A
-    CPU tensor goes to :func:`fused_ir_stage_plain`.
+    whole projection in one f32 accumulation, whatever ``c_exp_split``. The
+    full blocks take the tiling of :func:`ir_block_plan` (S alone decides
+    it: one strip at S <= 32, flat runs at S = 40, 47 and 63, column strips
+    at S = 80 and up; a pixel's result is the same bits under any tiling).
+    A CPU tensor goes to :func:`fused_ir_stage_plain`.
     """
     check_stage(blocks, c_exp_split)
     if x.device.type == "cpu":
