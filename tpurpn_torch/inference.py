@@ -28,6 +28,7 @@ from .backbones.mobilenet_v2 import relu6
 from .config import HyperParams
 from .kernels.ir_stage import fused_ir_stage, stage_weights_cached
 from .model import RPN, apply_rpn_head
+from .profiling import span
 
 _FUSED_BLOCKS = ("block_7", "block_8", "block_9", "block_10", "block_11",
                  "block_12")
@@ -47,10 +48,12 @@ def _fused_stage_from(
     weights are packed once and reused until a parameter changes
     (``stage_weights_cached``)."""
     bb = model.backbone
-    feat6 = bb(x, stop_after_block=6, skip_stem=skip_stem)
+    with span("rpn.prefix"):
+        feat6 = bb(x, stop_after_block=6, skip_stem=skip_stem)
     weights, blocks = stage_weights_cached(bb, _FUSED_BLOCKS, tail_expand="block_13_expand")
     feat = fused_ir_stage(feat6.to(torch.bfloat16).contiguous(), weights, blocks)
-    return apply_rpn_head(model, feat)
+    with span("rpn.head"):
+        return apply_rpn_head(model, feat)
 
 
 @torch.no_grad()
@@ -162,15 +165,16 @@ def s2d_uint8_stem(model: RPN, raw: torch.Tensor) -> torch.Tensor:
     folded Conv1 + ReLU6, with the resize emitting s2d (``s2d_resize``) and
     Conv1 as the folded 2x2 conv (``fold_conv1_s2d``). Needs raw H, W <=
     ``img_size``."""
-    dtype = model.dtype
-    conv1 = model.backbone.Conv1
-    w4, b1 = fold_conv1_s2d(conv1.weight, conv1.bias)
-    x = raw.to(dtype) / torch.full((), 255.0, dtype=dtype, device=raw.device)
-    x12 = s2d_resize(x, model.hp.img_size).permute(0, 3, 1, 2)  # channels-last NCHW
-    x12 = F.pad(x12, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x12, w4.to(dtype).contiguous(memory_format=torch.channels_last),
-                 b1.to(dtype))
-    return relu6(y).permute(0, 2, 3, 1)
+    with span("rpn.stem"):
+        dtype = model.dtype
+        conv1 = model.backbone.Conv1
+        w4, b1 = fold_conv1_s2d(conv1.weight, conv1.bias)
+        x = raw.to(dtype) / torch.full((), 255.0, dtype=dtype, device=raw.device)
+        x12 = s2d_resize(x, model.hp.img_size).permute(0, 3, 1, 2)  # channels-last NCHW
+        x12 = F.pad(x12, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(x12, w4.to(dtype).contiguous(memory_format=torch.channels_last),
+                     b1.to(dtype))
+        return relu6(y).permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

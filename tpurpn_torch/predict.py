@@ -25,6 +25,7 @@ from .boxes import get_bboxes_from_deltas
 from .config import HyperParams
 from .kernels.proposal import fused_proposals, fused_proposals_plain
 from .model import RPN, default_device
+from .profiling import span
 
 
 def decode_outputs(
@@ -121,10 +122,11 @@ def make_predict_fn(
                 return inference.fast_uint8_forward(model, images)
             from .data import preprocess_batch
 
-            images, _ = preprocess_batch(
-                images, torch.zeros((images.shape[0], 1, 4), device=device),
-                hp.img_size, dtype=dtype,
-            )
+            with span("rpn.stem"):
+                images, _ = preprocess_batch(
+                    images, torch.zeros((images.shape[0], 1, 4), device=device),
+                    hp.img_size, dtype=dtype,
+                )
         if fast:
             from .inference import fast_mobilenet_forward
 
@@ -133,17 +135,22 @@ def make_predict_fn(
 
     @torch.no_grad()
     def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        rpn_reg, rpn_cls = forward(images.to(device))
-        boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
-        out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
-        if mesh is None:
-            return out
-        group = mesh.get_group()
-        gathered = {}
-        for k, v in out.items():
-            parts = [torch.empty_like(v) for _ in range(mesh.size())]
-            dist.all_gather(parts, v.contiguous(), group=group)
-            gathered[k] = torch.cat(parts)
-        return gathered
+        with span("rpn.predict"):
+            with span("rpn.upload"):
+                images = images.to(device)
+            rpn_reg, rpn_cls = forward(images)
+            with span("rpn.decode"):
+                boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
+            with span("rpn.select"):
+                out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+            if mesh is None:
+                return out
+            group = mesh.get_group()
+            gathered = {}
+            for k, v in out.items():
+                parts = [torch.empty_like(v) for _ in range(mesh.size())]
+                dist.all_gather(parts, v.contiguous(), group=group)
+                gathered[k] = torch.cat(parts)
+            return gathered
 
     return predict_fn

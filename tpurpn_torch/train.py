@@ -43,6 +43,7 @@ from .data import preprocess_batch
 from .backbones.mobilenet_v2 import global_batch_statistics
 from .losses import cls_valid_count, reg_loss, reg_pos_count, rpn_cls_loss
 from .model import RPN, default_device, get_model, init_model
+from .profiling import span
 from .target import calculate_rpn_actual_outputs, target_rand_bits
 
 
@@ -289,22 +290,26 @@ class _Step:
         num_pos = (labels == 1.0).sum()
         if self.group is not None:
             pos_norm, valid_norm = _global_counts(deltas, labels, self.group)
-            with global_batch_statistics(model, self.group):
-                rpn_reg, rpn_cls = model(images)
-            l_reg = reg_loss(deltas, rpn_reg, normalizer=pos_norm)
-            l_cls = rpn_cls_loss(labels, rpn_cls, normalizer=valid_norm)
-            (l_reg + l_cls).backward()
-            _sum_gradients(model, self.group)
+            with span("rpn.step.forward"):
+                with global_batch_statistics(model, self.group):
+                    rpn_reg, rpn_cls = model(images)
+                l_reg = reg_loss(deltas, rpn_reg, normalizer=pos_norm)
+                l_cls = rpn_cls_loss(labels, rpn_cls, normalizer=valid_norm)
+            with span("rpn.step.backward"):
+                (l_reg + l_cls).backward()
+                _sum_gradients(model, self.group)
             sums = torch.stack([l_reg.detach(), l_cls.detach(), num_pos.float()])
             dist.all_reduce(sums, group=self.group)
             l_reg, l_cls, num_pos = sums[0], sums[1], sums[2].long()
             loss = l_reg + l_cls
         elif self.grad_accum == 1:
-            rpn_reg, rpn_cls = model(images)
-            l_reg = reg_loss(deltas, rpn_reg)
-            l_cls = rpn_cls_loss(labels, rpn_cls)
-            loss = l_reg + l_cls
-            loss.backward()
+            with span("rpn.step.forward"):
+                rpn_reg, rpn_cls = model(images)
+                l_reg = reg_loss(deltas, rpn_reg)
+                l_cls = rpn_cls_loss(labels, rpn_cls)
+                loss = l_reg + l_cls
+            with span("rpn.step.backward"):
+                loss.backward()
             l_reg, l_cls, loss = l_reg.detach(), l_cls.detach(), loss.detach()
         else:
             # the full-batch loss's denominators
@@ -314,21 +319,25 @@ class _Step:
             l_reg = l_cls = loss = torch.zeros((), device=dev)
             for i in range(self.grad_accum):
                 sl = slice(i * mb, (i + 1) * mb)
-                rpn_reg, rpn_cls = model(images[sl])
-                m_reg = reg_loss(deltas[sl], rpn_reg, normalizer=pos_norm)
-                m_cls = rpn_cls_loss(labels[sl], rpn_cls, normalizer=valid_norm)
-                (m_reg + m_cls).backward()  # .grad sums over the microbatches
+                with span("rpn.step.forward"):
+                    rpn_reg, rpn_cls = model(images[sl])
+                    m_reg = reg_loss(deltas[sl], rpn_reg, normalizer=pos_norm)
+                    m_cls = rpn_cls_loss(labels[sl], rpn_cls, normalizer=valid_norm)
+                with span("rpn.step.backward"):
+                    (m_reg + m_cls).backward()  # .grad sums over the microbatches
                 l_reg = l_reg + m_reg.detach()
                 l_cls = l_cls + m_cls.detach()
                 loss = loss + (m_reg + m_cls).detach()
-        opt.step()
+        with span("rpn.step.update"):
+            opt.step()
         model.train(was_training)
         return {"loss": loss, "reg_loss": l_reg, "cls_loss": l_cls, "num_pos": num_pos}
 
     def __call__(self, state: TrainState, images_u8, gt_boxes, gt_labels, generator=None, *,
                  flip=None, rand_bits=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        flip, rand_bits = self.draws(generator, flip, rand_bits, images_u8.shape[0])
-        metrics = self.update(state, images_u8, gt_boxes, gt_labels, flip, rand_bits)
+        with span("rpn.step"):
+            flip, rand_bits = self.draws(generator, flip, rand_bits, images_u8.shape[0])
+            metrics = self.update(state, images_u8, gt_boxes, gt_labels, flip, rand_bits)
         state.step += 1
         return state, metrics
 
