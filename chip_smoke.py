@@ -30,7 +30,13 @@ them:
    ``ir_block_plan``, flat runs and column strips both) and its tilings:
    the S = 40 and 63 runs (flat) and block_2's S = 125 run (strips)
    bit-equal to a 32-wide crop's inside the crop, across thread-block
-   boundaries of the wide run;
+   boundaries of the wide run; then (``prefix``) the serving prefix's
+   kernels on the Conv1 activations of the B uint8 frames: each of the 20
+   launches against its plain version (the depthwise bit for bit, the 1x1
+   within one bf16 ulp) and the module's ops for the same conv, timed
+   beside its byte bound, its plain version and those ops; the walk
+   against the module's forward; a traced fast serving call with 13 + 7
+   launches and nothing else inside ``rpn.prefix``;
 3. runs ``make_predict_fn(fast=True)`` on B bf16 images and
    ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8 375x500
    frames, with every kernel's launch count set to 0 just before each run and
@@ -167,6 +173,7 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS = 14  # f32 operations of one IoU test (4 min/max, 4 sub, 3 max, mul, add, div)
 TOL_REL = 0.02
+BF16_ULP = 2.0 ** -7
 # Limits of a mesh step against one device on the same global batch. f32:
 # the reduction order alone. bf16, where a rounding to bf16 moves with the
 # statistics' last bits: between the largest readings of sound runs (two
@@ -1507,6 +1514,166 @@ def trainer_cli_phase(torch, kernels, cli, data, batch, tmp):
                                         "launches": counts(kernels)}}
 
 
+def ulp_err(got, ref):
+    """(max |got - ref|, within one bf16 ulp of max(1, |ref|max) plus one of
+    |ref|): the f32 summation order of a 1x1 product before its one bf16
+    rounding."""
+    got, ref = got.float(), ref.float()
+    scale = max(1.0, float(ref.abs().max()))
+    err = (got - ref).abs()
+    return float(err.max()), float((err - BF16_ULP * (scale + ref.abs())).max()) <= 0.0
+
+
+def prefix_phase(torch, folded, frames, dev):
+    """The serving prefix's kernels (``kernels/prefix.py``) at the serving
+    shapes: the Conv1 activations of B uint8 frames through the s2d stem,
+    then each of the 20 convolutions of expanded_conv .. block_6 in turn on
+    the kernel's own output. Each launch against its plain version (the
+    depthwise bit for bit, the 1x1 within one bf16 ulp) and against the
+    module's ops for the same conv (cuDNN's conv with its bias add, and its
+    pad at stride 2, then clamp and the residual add: the yardstick, which
+    the port no longer calls) at the bf16 tolerance; each timed with CUDA
+    events beside its bound (its input, residual and output bytes over
+    PEAK_BYTES), its plain version and the yardstick. Then the whole walk
+    against ``bb(x, stop_after_block=6, skip_stem=True)``, both timed and
+    profiled; and a traced fast serving call: 13 prefix_pointwise and 7
+    prefix_depthwise launches, no host op inside ``rpn.prefix`` that
+    convolves, adds, clamps, fills, pads or copies, and the device
+    operations inside it (kineto's device range of the span) those 20
+    kernels alone; the serving call's ms with the prefix on the kernels and
+    with the module's forward put back in its place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurpn_torch import inference, make_predict_fn, profiling
+    from tpurpn_torch.backbones.mobilenet_v2 import relu6
+    from tpurpn_torch.kernels import prefix as pk
+
+    bb = folded.backbone
+    B = frames.shape[0]
+    out = {"phase": "prefix", "batch": B, "raw": list(frames.shape[1:3]),
+           "tolerance": "depthwise bit-exact; 1x1 one bf16 ulp; yardstick and walk "
+                        f"rel {TOL_REL} of max(1, |ref|max)"}
+    rows = []
+    with torch.no_grad():
+        feat1 = inference.s2d_uint8_stem(folded, frames).contiguous()
+        blocks = pk.pack_prefix(bb, inference._PREFIX_BLOCKS)
+        x = feat1
+        for name, (ex, dw, pj) in zip(inference._PREFIX_BLOCKS, blocks):
+            blk = bb.get_submodule(name)
+            block_in, h = x, x
+            for part, op in ([("expand", ex)] if ex is not None else []) + [
+                    ("depthwise", dw), ("project", pj)]:
+                conv = blk.get_submodule(f"{name}_{part}")
+                res = block_in if part == "project" and op.residual else None
+                if part == "depthwise":
+                    kern = lambda h=h, op=op: pk.prefix_depthwise(h, op)
+                    plain = lambda h=h, op=op: pk.prefix_depthwise_plain(h, op)
+                else:
+                    kern = lambda h=h, op=op, res=res: pk.prefix_pointwise(h, op, res)
+                    plain = lambda h=h, op=op, res=res: pk.prefix_pointwise_plain(h, op, res)
+
+                def library(h=h, conv=conv, relu=part != "project", res=res):
+                    y = conv(h.permute(0, 3, 1, 2))
+                    y = (relu6(y) if relu else y).permute(0, 2, 3, 1)
+                    return y + res if res is not None else y
+
+                got, ref, lib = kern(), plain(), library()
+                torch.cuda.synchronize()
+                what = f"{name}_{part} {tuple(h.shape)} -> {tuple(got.shape)}"
+                if part == "depthwise":
+                    require(torch.equal(got, ref), f"prefix depthwise kernel vs plain: {what}")
+                    err = float((got.float() - ref.float()).abs().max())
+                else:
+                    err, ok = ulp_err(got, ref)
+                    require(ok, f"prefix 1x1 kernel vs plain: {what}: max abs err {err}")
+                lib_err, lib_ok = close_err(got, lib)
+                require(lib_ok, f"prefix kernel vs the module's conv: {what}: {lib_err}")
+                nbytes = 2 * (h.numel() + got.numel() + (res.numel() if res is not None else 0))
+                rows.append({"conv": f"{name}_{part}", "kernel": f"prefix_{'depthwise' if part == 'depthwise' else 'pointwise'}",
+                             "spec": list(op.spec), "in": list(h.shape), "out": list(got.shape),
+                             "max_abs_err": err, "library_max_abs_err": lib_err,
+                             "ms": time_ms(torch, kern, 20), "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                             "plain_ms": time_ms(torch, plain, 2, 1),
+                             "library_ms": time_ms(torch, library, 20)})
+                h = got
+            x = h
+        for r in rows:
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+        out["convs"] = rows
+        for k in ("prefix_pointwise", "prefix_depthwise"):
+            mine = [r for r in rows if r["kernel"] == k]
+            out[k] = {f: sum(r[f] for r in mine) for f in ("ms", "bound_ms", "plain_ms",
+                                                          "library_ms")}
+            out[k]["convs"] = len(mine)
+
+        def walk():
+            return pk.prefix_blocks(feat1, blocks)
+
+        def module():
+            return bb(feat1, stop_after_block=6, skip_stem=True)
+
+        err, ok = close_err(walk(), module())
+        require(ok, f"prefix walk vs the module's forward: max abs err {err}")
+        out["walk"] = {"max_abs_err": err, "ms": time_ms(torch, walk, 10),
+                       "module_ms": time_ms(torch, module, 10)}
+        out["walk"]["device_busy_ms"], out["walk"]["device_ops"] = device_profile(torch, walk)
+        out["walk"]["module_device_busy_ms"], out["walk"]["module_device_ops"] = (
+            device_profile(torch, module))
+
+    predict = make_predict_fn(folded, folded.hp, fast=True, from_uint8=True, device=dev)
+    predict(frames)
+    torch.cuda.synchronize()
+    counters = {"prefix_pointwise": pk.prefix_pointwise, "prefix_depthwise": pk.prefix_depthwise}
+    reset(counters)
+    predict(frames)
+    torch.cuda.synchronize()
+    launches = counts(counters)
+    require(launches == {"prefix_pointwise": 13, "prefix_depthwise": 7},
+            f"a fast serving call launched {launches}")
+    out["launches"] = launches
+    for _ in range(2):
+        predict(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            profiling._on(annotate=True):
+        predict(frames)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    host = [e for e in events if e.name == "rpn.prefix" and e.device_type == DeviceType.CPU]
+    require(len(host) == 1, f"{len(host)} host ranges of rpn.prefix in the trace")
+    inside, todo = set(), list(host[0].cpu_children)
+    while todo:
+        e = todo.pop()
+        inside.add(e.name)
+        todo += list(e.cpu_children)
+    bad = sorted(n for n in inside if any(k in n.lower() for k in (
+        "conv", "add", "clamp", "fill", "pad", "copy", "cudnn", "mul", "cat", "cast")))
+    require(not bad, f"host operations inside rpn.prefix: {bad}")
+    on_dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation), key=lambda e: e.time_range.start)
+    # kineto's device range of the span: the operations launched in it
+    ranges = [e for e in events if e.name == "rpn.prefix" and e.device_type == DeviceType.CUDA]
+    require(len(ranges) == 1, f"{len(ranges)} device ranges of rpn.prefix in the trace")
+    r0, r1 = ranges[0].time_range.start, ranges[0].time_range.end
+    mine = [e for e in on_dev if e.time_range.start >= r0 and e.time_range.end <= r1]
+    names = [e.name for e in mine]
+    require(len(names) == 20 and all("prefix_pointwise_kernel" in n or "prefix_depthwise_kernel"
+                                     in n for n in names),
+            f"device operations inside rpn.prefix: {names}")
+    out["trace"] = {"host_ops": sorted(inside), "device_ops": len(names),
+                    "device_ms": sum(e.self_device_time_total for e in mine) / 1e3,
+                    "host_ms": (host[0].time_range.end - host[0].time_range.start) / 1e3}
+    out["serving_ms"] = time_ms(torch, lambda: predict(frames), 5)
+    real = pk.prefix_blocks
+    inference.prefix_blocks = lambda x, blocks: bb(x, stop_after_block=6, skip_stem=True)
+    try:
+        out["serving_ms_module_prefix"] = time_ms(torch, lambda: predict(frames), 5)
+    finally:
+        inference.prefix_blocks = real
+    return out
+
+
 def check_proposals(torch, out, B, topn) -> None:
     boxes, scores, nv = out["roi_boxes"], out["roi_scores"], out["num_valid"]
     require(boxes.shape == (B, topn, 4) and scores.shape == (B, topn)
@@ -1545,6 +1712,7 @@ def main() -> int:
         _select, fused_proposals, fused_proposals_plain, top_candidates)
     from tpurpn_torch.kernels.targets import cluster_size, fused_iou_matching, fused_rpn_targets
     from tpurpn_torch.kernels.nms import nms_keep, nms_keep_plain
+    from tpurpn_torch.kernels.prefix import prefix_depthwise, prefix_pointwise
     from tpurpn_torch.boxes import batched_non_max_suppression
     from tpurpn_torch.data import SyntheticVOC
     from tpurpn_torch.target import iou_matching, iou_matching_plain, rpn_targets_plain
@@ -1575,7 +1743,7 @@ def main() -> int:
 
     # 1. build every kernel of the path, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    sources = ("proposal", "ir_stage", "targets", "nms")
+    sources = ("proposal", "ir_stage", "targets", "nms", "prefix")
     _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1686,6 +1854,8 @@ def main() -> int:
     emit({"phase": "kernel_edge_cases", **edges})
     ir_domain = ir_domain_phase(torch, folded.backbone, dgen, dev)
     emit({**ir_domain, "nvidia_smi": smi})
+    pfx = prefix_phase(torch, folded, frames, dev)
+    emit({**pfx, "nvidia_smi": smi})
 
     # the target and IoU-matching kernels at config 3: VGG16 anchors, B=8
     # SyntheticVOC samples (M=8), words from a seeded generator
@@ -1838,7 +2008,8 @@ def main() -> int:
     # 3. the main paths, each with every count at 0 just before it
     kernels = {"ir_stage": fused_ir_stage, "proposals": fused_proposals,
                "targets": fused_rpn_targets, "iou_matching": fused_iou_matching,
-               "nms": nms_keep}
+               "nms": nms_keep, "prefix_pointwise": prefix_pointwise,
+               "prefix_depthwise": prefix_depthwise}
     predict = make_predict_fn(folded, hp, fast=True, device=dev)
     predict_u8 = make_predict_fn(folded, hp, fast=True, from_uint8=True, device=dev)
     launches, outs = {}, {}
@@ -1849,6 +2020,9 @@ def main() -> int:
         launches[variant] = counts(kernels)
         for n in ("ir_stage", "proposals"):
             require(launches[variant][n] > 0, f"{variant} main path never launched the {n} kernel")
+        require(launches[variant]["prefix_pointwise"] == 13
+                and launches[variant]["prefix_depthwise"] == 7,
+                f"{variant} main path's prefix launches: {launches[variant]}")
         check_proposals(torch, out, B, topn)
         emit({"phase": f"main_path_{variant}", "launches": launches[variant],
               "num_valid_min": int(out["num_valid"].min()),
@@ -2192,6 +2366,14 @@ def main() -> int:
          "device_ms": device_ms["nms"], "wrapper_device_ms": wrapper_device_ms["nms"],
          "plain_ms": nms_plain_ms,
          "bound_ms": nms_bd, "bound_by": nms_by, "library_ms": None},
+        *({"name": k, "route": "cuda", "source": "tpurpn_torch/kernels/csrc/prefix.cu",
+           "replaces": None, "launches": launches["bf16"][k],
+           "launches_uint8": launches["uint8"][k],
+           "match": "bit-exact" if k == "prefix_depthwise" else "one bf16 ulp",
+           "max_abs_err": max(r["max_abs_err"] for r in pfx["convs"] if r["kernel"] == k),
+           "bound_by": "bytes", **{f: pfx[k][f] for f in ("ms", "bound_ms", "plain_ms",
+                                                          "library_ms", "convs")}}
+          for k in ("prefix_pointwise", "prefix_depthwise")),
     ]})
     shutil.rmtree(tmp, ignore_errors=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ plain versions.
   covers every wrapper: IR stage, proposals (and the selection entry alone),
   targets, IoU matching, NMS (the plain versions of the last three are held
   against ``tpurpn`` in tests/test_torch_targets.py and
-  tests/test_torch_nms.py).
+  tests/test_torch_nms.py), and the prefix's two (their plain versions
+  are held in tests/test_torch_prefix.py).
 """
 
 import numpy as np
@@ -44,7 +45,7 @@ from tpurpn.kernels.ir_stage_pallas import pack_stage_weights as j_pack_stage_we
 from tpurpn.kernels.proposal_pallas import fused_proposals_planes
 from tpurpn.predict import generate_proposals as j_generate_proposals
 import tpurpn_torch
-from tpurpn_torch.kernels import _build, ir_stage, nms, proposal, targets
+from tpurpn_torch.kernels import _build, ir_stage, nms, prefix, proposal, targets
 
 from test_torch_model import IMG_SIZES, close, flax_mobilenet, images, port
 
@@ -674,7 +675,8 @@ HP_VGG = tpurpn_torch.get_hyper_params("vgg16")
 
 
 @pytest.mark.parametrize("kernel", ["ir_stage", "proposals", "proposal_select", "targets",
-                                    "iou_matching", "nms"])
+                                    "iou_matching", "nms", "prefix_pointwise",
+                                    "prefix_depthwise"])
 def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
     if kernel == "proposal_select":
         fn = proposal.fused_proposals  # _select counts its launches here
@@ -698,6 +700,18 @@ def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
     elif kernel == "iou_matching":
         fn = targets.fused_iou_matching
         args = (_meta((8649, 4)), _meta((2, 8, 4)))
+    elif kernel == "prefix_pointwise":  # block_2's project, with its residual
+        fn = prefix.prefix_pointwise
+        pw = prefix.pack_pointwise(port(128, folded=True).backbone.block_2.block_2_project,
+                                   False, True)
+        args = (_meta((2, 9, 9, 144), torch.bfloat16),
+                prefix.Pointwise(*(t.to("meta") for t in pw[:3]), *pw[3:]),
+                _meta((2, 9, 9, 24), torch.bfloat16))
+    elif kernel == "prefix_depthwise":
+        fn = prefix.prefix_depthwise
+        dw = prefix.pack_depthwise(port(128, folded=True).backbone.block_3.block_3_depthwise)
+        args = (_meta((2, 9, 9, 144), torch.bfloat16),
+                prefix.Depthwise(dw.taps.to("meta"), dw.b.to("meta"), dw.stride))
     else:
         fn = nms.nms_keep
         args = (_meta((2, 500, 4)), _meta((2, 500), torch.bool), 0.7, 50)

@@ -1,6 +1,8 @@
 """Fused serving forward for MobileNetV2 (port of ``tpurpn/inference.py``).
 
-  torch prefix (Conv1 .. block_6, cuDNN convs)
+  Conv1 (the module's, or the s2d stem)
+  -> kernels.prefix (expanded_conv .. block_6: 13 prefix_pointwise and 7
+     prefix_depthwise launches, bias, ReLU6 and residual in their epilogues)
   -> kernels.ir_stage.fused_ir_stage (blocks 7-12 + block_13_expand)
   -> RPN head (3x3 conv + 1x1 cls/reg)
 
@@ -27,9 +29,12 @@ import torch.nn.functional as F
 from .backbones.mobilenet_v2 import relu6
 from .config import HyperParams
 from .kernels.ir_stage import fused_ir_stage, stage_weights_cached
+from .kernels.prefix import prefix_blocks, prefix_weights_cached
 from .model import RPN, apply_rpn_head
 from .profiling import span
 
+_PREFIX_BLOCKS = ("expanded_conv", "block_1", "block_2", "block_3", "block_4", "block_5",
+                  "block_6")
 _FUSED_BLOCKS = ("block_7", "block_8", "block_9", "block_10", "block_11",
                  "block_12")
 
@@ -43,15 +48,21 @@ def _fused_stage_from(
     model: RPN, x: torch.Tensor, skip_stem: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Images | Conv1 activations with ``skip_stem``) -> logits through the
-    prefix (to block_6), the fused stage and the head: the stage boundary
-    (block_6/7 split, block_13_expand tail) lives here only. The stage's
-    weights are packed once and reused until a parameter changes
-    (``stage_weights_cached``)."""
+    prefix (to block_6), the fused stage and the head: the stage boundaries
+    (Conv1 / expanded_conv, block_6/7, the block_13_expand tail) live here
+    only. Without ``skip_stem`` Conv1 runs as the module runs it; the
+    prefix's blocks run on the prefix kernels, one launch a conv, in bf16
+    (the module's ``forward``, which training runs, is not used). The
+    prefix's and the stage's weights are packed once and reused until a
+    parameter changes (``prefix_weights_cached``, ``stage_weights_cached``)."""
     bb = model.backbone
     with span("rpn.prefix"):
-        feat6 = bb(x, stop_after_block=6, skip_stem=skip_stem)
+        if not skip_stem:
+            x = relu6(bb.Conv1(x.to(bb.dtype).permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        feat6 = prefix_blocks(x.to(torch.bfloat16).contiguous(),
+                              prefix_weights_cached(bb, _PREFIX_BLOCKS))
     weights, blocks = stage_weights_cached(bb, _FUSED_BLOCKS, tail_expand="block_13_expand")
-    feat = fused_ir_stage(feat6.to(torch.bfloat16).contiguous(), weights, blocks)
+    feat = fused_ir_stage(feat6, weights, blocks)
     with span("rpn.head"):
         return apply_rpn_head(model, feat)
 

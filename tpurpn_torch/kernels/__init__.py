@@ -12,5 +12,8 @@ raise). ``<wrapper>.launches`` counts the kernel calls.
   ``tpurpn/kernels/target_pallas.py::fused_rpn_targets`` and
   ``::fused_iou_matching``;
 * ``nms.nms_keep`` — replaces
-  ``tpurpn/kernels/nms_pallas.py::nms_pallas_keep``.
+  ``tpurpn/kernels/nms_pallas.py::nms_pallas_keep``;
+* ``prefix.prefix_pointwise`` and ``prefix.prefix_depthwise`` — replace no
+  TPU kernel: the serving prefix's 1x1 and depthwise convolutions (which
+  ``tpurpn`` left to XLA) with their bias, ReLU6 and residual fused.
 """

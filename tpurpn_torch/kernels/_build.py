@@ -51,6 +51,10 @@ SIGNATURES = {
     "nms": {
         "nms_keep": (P, P, P, P, P, P, I, I, I, I, I, F, P),
     },
+    "prefix": {
+        "prefix_pointwise": (P, P, P, P, I, P, I, I, I, I, P),
+        "prefix_depthwise": (P, P, P, P, I, I, I, I, I, P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
