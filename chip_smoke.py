@@ -125,7 +125,18 @@ them:
    over NCCL: the mesh step (cuDNN deterministic), eval loss and predict
    bit for bit against one device; then the trainer CLI with
    ``--device-data --data-parallel`` for 5 steps (its graph captured once
-   and replayed 4 times, counted on the graph).
+   and replayed 4 times, counted on the graph);
+14. ``vitdet_serving`` (run after ``serving_640``): ViTDet-B's RPN at 1024 px
+   (seeded random weights, the head drawn wider) through
+   ``make_predict_fn(from_uint8=True)`` on 16 uint8 480x640 frames: one
+   ``proposal_kernel_levels`` launch, 8 + 4 attention cores and 4,768
+   candidates an image into NMS, counted from 0; the level kernel held bit
+   for bit against its plain version on the candidates that call selected
+   from (261,888 anchors an image, 1,000 out) and on them twice over, the
+   copies on levels of their own (kept beside their boxes; none kept
+   without levels), the served output its own; the batch, the
+   wrapper, its sort and kernel timed beside the level-wise walk's bound
+   (the ``kernels`` line's ``fused_proposals_levels`` row).
 h5py, PIL and tensorboardX are reported in the ``setup`` line and then
 blocked for the run: no check depends on them.
 
@@ -485,30 +496,36 @@ def ir_wide_stage(torch, ir_stage_module, x, weights, blocks):
                        "bit_equal": True}}
 
 
-def proposal_bound(torch, boxes, scores, pre, max_output, thr):
+def proposal_bound(torch, boxes, scores, pre, max_output, thr, levels=None):
     """(bound_ms, bound_by, visited) of top-``pre`` + greedy NMS on these
     candidates: every score is read (the top-k needs all), the boxes the
     greedy walk visits (up to the last keep; ``visited`` (B,) counts them)
     are read once, each visited candidate is tested against the boxes kept
-    before it, and the outputs are written."""
+    before it, and the outputs are written. With ``levels`` ((N,) ids) a
+    visited candidate is tested only against the kept boxes of its level,
+    and its level is read beside its box."""
     from tpurpn_torch.boxes import batched_non_max_suppression
     from tpurpn_torch.kernels.proposal import top_candidates
 
     B, N = scores.shape
     idx = top_candidates(scores, pre)
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    top_levels = torch.zeros_like(idx) if levels is None else levels.long()[idx]
     sel, nv = batched_non_max_suppression(
         top_boxes, torch.gather(scores, 1, idx), max_output, thr, presorted=True,
-        use_kernel=False)
+        use_kernel=False, levels=None if levels is None else top_levels)
     keep = torch.zeros((B, pre + 1), dtype=torch.int64, device=boxes.device)
     keep.scatter_(1, torch.where(sel >= 0, sel.long(), pre), 1)
     keep = keep[:, :pre]
     full = nv >= max_output
     visited = torch.where(full, sel[:, max_output - 1].long() + 1, pre)
     pos = torch.arange(pre, device=boxes.device)[None]
-    kept_before = torch.cumsum(keep, 1) - keep
+    mine = torch.nn.functional.one_hot(top_levels, int(top_levels.max()) + 1)
+    kept = keep[..., None] * mine
+    kept_before = ((torch.cumsum(kept, 1) - kept) * mine).sum(-1)
     tests = int((kept_before * (pos < visited[:, None])).sum())
-    nbytes = B * N * 4 + int(visited.sum()) * 16 + B * max_output * 20 + B * 4
+    per_box = 16 if levels is None else 20
+    nbytes = B * N * 4 + int(visited.sum()) * per_box + B * max_output * 20 + B * 4
     t_ops = tests * IOU_OPS / PEAK_F32
     t_bytes = nbytes / PEAK_BYTES
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -1674,6 +1691,153 @@ def prefix_phase(torch, folded, frames, dev):
     return out
 
 
+def kept_twice(torch, out):
+    """(B,) the kept proposals of each image equal to one kept before them."""
+    b, nv = out["roi_boxes"], out["num_valid"]
+    valid = torch.arange(b.shape[1], device=b.device)[None] < nv[:, None]
+    same = (b[:, :, None] == b[:, None]).all(-1) & valid[:, :, None] & valid[:, None]
+    return torch.triu(same, diagonal=1).any(1).sum(1)
+
+
+def vitdet_phase(torch, args, dev, batch: int = 16):
+    """ViTDet-B's RPN at 1024 px served as users call it: seeded random
+    weights (the objectness and delta convs drawn wider than detectron2's
+    std 0.01, so that the logits spread over several units as a trained
+    head's do) and ``make_predict_fn(from_uint8=True)`` on ``batch`` uint8
+    480x640 SyntheticVOC frames in host memory. With every count at 0 just
+    before: one ``proposal_kernel_levels`` launch, 8 window and 4 global
+    attention cores and 4,768 candidates an image into NMS. The selection
+    inputs that call handed ``fused_proposals`` are kept, and the kernel is
+    held on them bit for bit against its plain version; the call's output is
+    the kernel's (its scores through the sigmoid); then on those candidates
+    twice over, the copies on levels of their own, against its plain
+    version again: copies kept beside their boxes in every image, and none
+    by the selection without levels. Times: the batch, the proposal wrapper,
+    its sort and its kernel (CUDA events), the kernel's own device time and
+    the batch's busy time (torch.profiler), the plain version, and the bound
+    of the level-wise walk."""
+    from tpurpn_torch import get_hyper_params, get_model, init_model
+    from tpurpn_torch import predict as predict_module
+    from tpurpn_torch.anchors import level_sizes
+    from tpurpn_torch.backbones import vit
+    from tpurpn_torch.data import SyntheticVOC
+    from tpurpn_torch.kernels.nms import nms_keep
+    from tpurpn_torch.kernels.proposal import (
+        _select, fused_proposals, fused_proposals_plain, top_candidates)
+    from tpurpn_torch.model import to_device
+
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    hp = get_hyper_params("vitdet_b")
+    gen = torch.Generator().manual_seed(args.seed)
+    model = init_model(get_model(hp), gen, device="cpu")
+    with torch.no_grad():
+        model.objectness.weight.normal_(0.0, 0.3, generator=gen)
+        model.deltas.weight.normal_(0.0, 0.06, generator=gen)
+    predict = predict_module.make_predict_fn(to_device(model, dev), hp, from_uint8=True, device=dev)
+    frames = torch.from_numpy(next(SyntheticVOC(
+        num_samples=batch, raw_h=480, raw_w=640, seed=args.seed).batches(batch))[0])
+    require(frames.dtype == torch.uint8 and frames.shape == (batch, 480, 640, 3),
+            f"frames {frames.dtype} {tuple(frames.shape)}")
+    predict(frames)  # warm-up: the interpolated positions, cuDNN's plans
+    torch.cuda.synchronize()
+
+    seen = []
+    orig = predict_module.fused_proposals
+
+    def recorded(*a, levels=None, **k):
+        out = orig(*a, levels=levels, **k)
+        seen.append((a, levels, dict(out)))  # select_levels rebinds roi_scores in ``out``
+        return out
+
+    fused_proposals.launches = 0
+    for kind in vit.attention_core.calls:
+        vit.attention_core.calls[kind] = 0
+    predict_module.select_levels.candidates = 0
+    predict_module.fused_proposals = recorded
+    try:
+        out = predict(frames)
+        torch.cuda.synchronize()
+    finally:
+        predict_module.fused_proposals = orig
+    launches = fused_proposals.launches
+    cores = dict(vit.attention_core.calls)
+    candidates = predict_module.select_levels.candidates
+    topn, thr = hp.test_nms_topn, hp.nms_iou_threshold
+    per_image = sum(min(hp.pre_nms_topn, n) for n in level_sizes(hp))
+    n_global = len(hp.vit.global_blocks)
+    require(launches == 1 and len(seen) == 1, f"vitdet serving: {launches} proposal launches")
+    require(cores == {"window": hp.vit.depth - n_global, "global": n_global},
+            f"vitdet attention cores {cores}")
+    require(candidates == batch * per_image, f"vitdet candidates into NMS {candidates}")
+    check_proposals(torch, out, batch, topn)
+    (cand, score, pre, _, _), levels, k_out = seen[0]
+    require(pre == per_image and levels is not None and levels.shape == (pre,),
+            f"vitdet selection took pre={pre}, levels {None if levels is None else levels.shape}")
+    with torch.no_grad():
+        nms_keep.launches = 0
+        p_out = fused_proposals_plain(cand, score, pre, thr, topn, levels=levels)
+        torch.cuda.synchronize()
+        require(nms_keep.launches == 0 and fused_proposals.launches == 1,
+                "the level selection's plain version reached a kernel")
+        for key in p_out:
+            require(torch.equal(k_out[key], p_out[key]),
+                    f"proposal_kernel_levels vs plain differ in {key}")
+        valid = torch.arange(topn, device=dev)[None] < k_out["num_valid"][:, None]
+        require(torch.equal(out["roi_boxes"], k_out["roi_boxes"])
+                and torch.equal(out["num_valid"], k_out["num_valid"])
+                and torch.equal(out["roi_scores"],
+                                torch.where(valid, torch.sigmoid(k_out["roi_scores"]), 0.0)),
+                "vitdet serving output is not its selection kernel's")
+        # every candidate again on a level of its own: an exact copy (IoU 1)
+        # is kept beside its box where levels part them, and never without
+        twin = (torch.cat([cand, cand], 1).contiguous(), torch.cat([score, score], 1), 2 * pre,
+                thr, topn)
+        twin_levels = torch.cat([levels, levels + int(levels.max()) + 1])
+        twin_k = fused_proposals(*twin, levels=twin_levels)
+        twin_p = fused_proposals_plain(*twin, levels=twin_levels)
+        for key in twin_p:
+            require(torch.equal(twin_k[key], twin_p[key]),
+                    f"proposal_kernel_levels vs plain on copied candidates differ in {key}")
+        copies, copies_flat = kept_twice(torch, twin_k), kept_twice(torch, fused_proposals(*twin))
+        require(bool((copies > 0).all()) and not bool(copies_flat.any()),
+                f"copies on another level kept {copies.tolist()}, without levels "
+                f"{copies_flat.tolist()}")
+
+        order = top_candidates(score, pre)
+        ms = time_ms(torch, lambda: predict(frames), 5, warmup=1)
+        busy, ops = device_profile(torch, lambda: predict(frames), iters=3)
+        pr_ms = time_ms(torch, lambda: fused_proposals(cand, score, pre, thr, topn,
+                                                       levels=levels), 20)
+        sort_ms = time_ms(torch, lambda: top_candidates(score, pre), 20)
+        select_ms = time_ms(torch, lambda: _select(cand, score, order, thr, topn, levels), 20)
+        plain_ms = time_ms(torch, lambda: fused_proposals_plain(cand, score, pre, thr, topn,
+                                                                levels=levels), 3)
+        device, wrapper_device = kernel_device_ms(
+            torch, lambda: fused_proposals(cand, score, pre, thr, topn, levels=levels),
+            ("proposal_kernel_levels",), fused_proposals)
+    bound, by, visited = proposal_bound(torch, cand, score, pre, topn, thr, levels)
+    nv = k_out["num_valid"]
+    phase = {"phase": "vitdet_serving", "batch": batch, "frames": "SyntheticVOC 480x640 uint8",
+             "img_size": hp.img_size, "anchors": hp.total_anchors,
+             "candidates_per_image": per_image, "topn": topn,
+             "launches": {"proposals": launches}, "attention_cores": cores,
+             "num_valid_min": int(nv.min()), "num_valid_mean": float(nv.float().mean()),
+             "kernel_vs_plain": "bit-exact", "copies_kept_mean": float(copies.float().mean()),
+             "ms_per_batch": ms, "img_per_s": batch / ms * 1e3,
+             "device_busy_ms": busy, "device_ops": ops,
+             "memory_peak_bytes": torch.cuda.max_memory_allocated(),
+             "memory_held_before_bytes": held,
+             "proposals": {"ms": pr_ms, "sort_ms": sort_ms, "select_ms": select_ms,
+                           "device_ms": device, "wrapper_device_ms": wrapper_device,
+                           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "visited_mean": float(visited.float().mean()),
+                           "visited_max": int(visited.max())}}
+    del predict, model, seen, cand, score, k_out, p_out, twin, twin_k, twin_p, out
+    torch.cuda.empty_cache()
+    return phase
+
+
 def check_proposals(torch, out, B, topn) -> None:
     boxes, scores, nv = out["roi_boxes"], out["roi_scores"], out["num_valid"]
     require(boxes.shape == (B, topn, 4) and scores.shape == (B, topn)
@@ -2204,6 +2368,9 @@ def main() -> int:
     # fast serving at 640x640, counts at 0 before each of its two routes
     s640 = serving_640_phase(torch, args, dev, kernels, smi)
     emit(s640)
+    # ViTDet-B served from uint8 frames: NMS within a level on the card
+    vd = vitdet_phase(torch, args, dev)
+    emit({**vd, "nvidia_smi": smi})
 
     # 5. the CLIs and the trained weights, each with every count at 0 first
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2329,6 +2496,13 @@ def main() -> int:
          "select_ms": select_ms, "sort_ms": sort_ms,
          "plain_ms": pr_plain_ms, "bound_ms": pr_bound, "bound_by": pr_by,
          "library_ms": None, "n14400": s640["proposals_n14400"]},
+        {"name": "fused_proposals_levels", "kernel": "proposal_kernel_levels", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/proposal.cu", "replaces": None,
+         "launches": vd["launches"]["proposals"], "max_abs_err": 0.0, "match": "bit-exact",
+         "B": vd["batch"], "candidates_per_image": vd["candidates_per_image"], "topn": vd["topn"],
+         **{f: vd["proposals"][f] for f in ("ms", "device_ms", "wrapper_device_ms", "select_ms",
+                                            "sort_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
         {"name": "fused_rpn_targets", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:355",

@@ -38,11 +38,17 @@ def test_anchors_bit_exact(backbone, count):
 
 
 def test_hyper_params_match():
+    """Every field of tpurpn's is the port's; the port's others are the
+    feature-pyramid fields, at their defaults (no levels) here."""
+    extra = {"level_strides", "box_weights", "scale_clamp", "pixel_mean", "pixel_std", "vit"}
+    plain = tpurpn_torch.HyperParams()
     for backbone in ("vgg16", "mobilenet_v2"):
         for img in (128, 136, 500):
             a = tpurpn.get_hyper_params(backbone, img_size=img)
             b = tpurpn_torch.get_hyper_params(backbone, img_size=img)
-            assert a.__dict__ == b.__dict__
+            assert {k: b.__dict__[k] for k in a.__dict__} == a.__dict__
+            assert set(b.__dict__) - set(a.__dict__) == extra and not b.multi_level
+            assert all(getattr(b, k) == getattr(plain, k) for k in extra)
 
 
 def test_delta_encode_decode_parity(rng):

@@ -22,7 +22,10 @@ trainer and predictor CLIs (``cli``; ``rpn_trainer_torch.py``,
 over a ``torch.distributed`` mesh (``train.make_data_mesh``), the
 device-resident chained steps (``make_scan_train_steps``, a CUDA graph of
 the step on the card) and the space-to-depth uint8 serving stem
-(``inference.fast_uint8_forward``).
+(``inference.fast_uint8_forward``). Beyond ``tpurpn``: the serving prefix's
+kernels (``kernels.prefix``) and ViTDet-B's RPN (``get_hyper_params(
+"vitdet_b")``: a plain ViT, a simple feature pyramid, five anchor levels and
+NMS within a level), which the port serves and does not train.
 """
 
 from .config import HyperParams, feature_map_shape_for, get_hyper_params

@@ -8,6 +8,13 @@ The arithmetic is the JAX package's numpy code, kept op for op, so the grids
 are bit-identical to ``tpurpn`` (9,216 anchors for MobileNetV2 at 500 px,
 8,649 for VGG16). ``generate_anchors`` hands the grid over as a float32 tensor
 on the requested device; it is computed once per ``HyperParams``.
+
+A configuration with a feature pyramid (``hp.multi_level``) takes
+detectron2's ``DefaultAnchorGenerator`` instead (``generate_level_anchors``):
+one size a level, ratios as listed, offset 0 (centres on the cells'
+corners), not clipped, computed in f32 as detectron2 computes them in pixels
+and then divided by the canvas ``img_size`` (exact: a power of two at 1024)
+into the port's [y1, x1, y2, x2].
 """
 
 from __future__ import annotations
@@ -60,7 +67,33 @@ def generate_anchors(hp: HyperParams, device=None) -> torch.Tensor:
     """Dense anchor grid: (fm*fm*anchor_count, 4) float32, clipped to [0, 1].
 
     Row order is row-major over (grid_y, grid_x, anchor), the layout of the
-    conv head outputs reshaped to (B, fm*fm*A, ...).
+    conv head outputs reshaped to (B, fm*fm*A, ...). With a pyramid, the
+    levels' grids one after another (``generate_level_anchors``).
     """
+    if hp.multi_level:
+        return generate_level_anchors(hp, device)
     # a copy: the cached array must not alias a tensor a caller may mutate
     return torch.tensor(_generate_anchors_np(hp), device=device)
+
+
+def generate_level_anchors(hp: HyperParams, device=None) -> torch.Tensor:
+    """(sum of H_l * W_l * A, 4) f32 anchors of every level, P2 first, each
+    row-major over (y, x, anchor) with the ratios in their listed order."""
+    out = []
+    for size, stride, fm in zip(hp.anchor_scales, hp.level_strides, hp.level_shapes):
+        ratios = torch.tensor(hp.anchor_ratios, dtype=torch.float64)
+        w = torch.sqrt(size * size / ratios)
+        h = ratios * w
+        base = torch.stack([-w / 2, -h / 2, w / 2, h / 2], -1).float()  # x0, y0, x1, y1
+        shift = torch.arange(0, fm * stride, step=stride, dtype=torch.float32)
+        sy, sx = torch.meshgrid(shift, shift, indexing="ij")
+        sx, sy = sx.reshape(-1), sy.reshape(-1)
+        shifts = torch.stack([sx, sy, sx, sy], -1)
+        a = (shifts[:, None, :] + base[None]).reshape(-1, 4)
+        out.append(a[:, [1, 0, 3, 2]] / hp.img_size)
+    return torch.cat(out).to(device)
+
+
+def level_sizes(hp: HyperParams) -> tuple:
+    """Anchors of each pyramid level, P2 first."""
+    return tuple(s * s * hp.anchor_count for s in hp.level_shapes)

@@ -69,6 +69,26 @@ def get_bboxes_from_deltas(anchors: torch.Tensor, deltas: torch.Tensor) -> torch
     )
 
 
+def apply_deltas(anchors: torch.Tensor, deltas: torch.Tensor, weights, scale_clamp: float
+                 ) -> torch.Tensor:
+    """detectron2's ``Box2BoxTransform.apply_deltas`` on [y1, x1, y2, x2]
+    boxes: deltas (..., 4) in (dx, dy, dw, dh) order, divided by ``weights``
+    (wx, wy, ww, wh); dw and dh clamped above at ``scale_clamp``; centres
+    and sizes as detectron2 computes them, in f32."""
+    wx, wy, ww, wh = weights
+    h = anchors[..., 2] - anchors[..., 0]
+    w = anchors[..., 3] - anchors[..., 1]
+    cy = anchors[..., 0] + 0.5 * h
+    cx = anchors[..., 1] + 0.5 * w
+    dw = torch.clamp(deltas[..., 2] / ww, max=scale_clamp)
+    dh = torch.clamp(deltas[..., 3] / wh, max=scale_clamp)
+    pcx = deltas[..., 0] / wx * w + cx
+    pcy = deltas[..., 1] / wy * h + cy
+    pw = torch.exp(dw) * w
+    ph = torch.exp(dh) * h
+    return torch.stack([pcy - 0.5 * ph, pcx - 0.5 * pw, pcy + 0.5 * ph, pcx + 0.5 * pw], dim=-1)
+
+
 def clip_bboxes(boxes: torch.Tensor) -> torch.Tensor:
     """Clip normalized boxes to the [0, 1] image window."""
     return torch.clamp(boxes, 0.0, 1.0)
@@ -129,6 +149,7 @@ def _nms_keep_sorted_batched(
     iou_threshold: float,
     block: int,
     max_output: int,
+    levels: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Greedy-NMS keep masks over batched score-sorted boxes: (B,n,4) -> (B,n).
 
@@ -138,7 +159,8 @@ def _nms_keep_sorted_batched(
     Blocks are screened against each image's kept-box buffer, and suppression
     inside a block is resolved by fixpoint iteration of
     m[j] = alive[j] & !any_{i<j}(m[i] & iou[i,j] > thr), whose unique fixpoint
-    is the greedy keep set.
+    is the greedy keep set. With ``levels`` ((B, n) ids) a box suppresses
+    only boxes of its own level.
     """
     B, n, _ = boxes_sorted.shape
     assert n % block == 0, "caller pads to a multiple of block"
@@ -152,6 +174,8 @@ def _nms_keep_sorted_batched(
 
     keep = torch.zeros((B, n), dtype=torch.bool, device=dev)
     buf = torch.zeros((B, kmax, 4), dtype=boxes_sorted.dtype, device=dev)
+    if levels is not None:
+        buf_lev = torch.zeros((B, kmax), dtype=torch.int64, device=dev)
     kept_count = torch.zeros((B,), dtype=torch.int64, device=dev)
     for start in range(0, n, block):
         active_img = kept_count < max_output  # frozen images keep nothing more
@@ -162,10 +186,15 @@ def _nms_keep_sorted_batched(
 
         iou_buf = generate_iou_map(blk, buf)  # (B, block, kmax)
         buf_active = buf_slot < kept_count[:, None]
-        suppressed = ((iou_buf > thr) & buf_active[:, None, :]).any(dim=2)
+        over_buf = (iou_buf > thr) & buf_active[:, None, :]
+        over_tri = (generate_iou_map(blk, blk) > thr) & tri
+        if levels is not None:
+            lev = levels[:, start : start + block].long()
+            over_buf &= lev[:, :, None] == buf_lev[:, None, :]
+            over_tri &= lev[:, :, None] == lev[:, None, :]
+        suppressed = over_buf.any(dim=2)
         alive = valid_blk & ~suppressed & active_img[:, None]
 
-        over_tri = (generate_iou_map(blk, blk) > thr) & tri
         m = alive
         while True:
             m_new = alive & ~(over_tri & m[:, :, None]).any(dim=1)
@@ -177,6 +206,8 @@ def _nms_keep_sorted_batched(
         pos = kept_count[:, None] + torch.cumsum(m, dim=1) - 1
         bi, ji = torch.nonzero(m & (pos < kmax), as_tuple=True)
         buf[bi, pos[bi, ji]] = blk[bi, ji]
+        if levels is not None:
+            buf_lev[bi, pos[bi, ji]] = lev[bi, ji]
         keep[:, start : start + block] = m
         kept_count = kept_count + m.sum(dim=1)
     return keep
@@ -191,6 +222,7 @@ def batched_non_max_suppression(
     block: int = 128,
     presorted: bool = False,
     use_kernel: bool | None = None,
+    levels: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy NMS with ``tf.image.non_max_suppression`` semantics.
 
@@ -207,6 +239,8 @@ def batched_non_max_suppression(
         (``kernels.nms.nms_keep``) on CUDA tensors and in plain PyTorch on
         CPU tensors; False always takes the plain path. Both select the same
         boxes.
+      levels: (B, N) level ids, in the boxes' order: a box suppresses only
+        boxes of its own level (the plain path only).
 
     Returns:
       (indices (B, k) int32 in descending score order, -1 past num_valid;
@@ -217,22 +251,28 @@ def batched_non_max_suppression(
 
     if presorted:
         order = None
-        boxes_sorted, scores_sorted = boxes, scores
+        boxes_sorted, scores_sorted, levels_sorted = boxes, scores, levels
     else:
         # stable sort by descending score: ties go to the lower index, as in
         # jnp.argsort(-scores) and TF's sort
         order = torch.sort(-scores, dim=-1, stable=True).indices
         boxes_sorted = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
         scores_sorted = torch.gather(scores, 1, order)
+        levels_sorted = None if levels is None else torch.gather(levels, 1, order)
     if n_pad > n:
         boxes_sorted = torch.nn.functional.pad(boxes_sorted, (0, 0, 0, n_pad - n))
         scores_sorted = torch.nn.functional.pad(
             scores_sorted, (0, n_pad - n), value=float("-inf")
         )
+        if levels_sorted is not None:
+            levels_sorted = torch.nn.functional.pad(levels_sorted, (0, n_pad - n))
     valid = scores_sorted > score_threshold
 
     if use_kernel is None:
         use_kernel = boxes.device.type != "cpu"
+    if use_kernel and levels is not None:
+        raise ValueError("the NMS kernel takes no levels: use_kernel=False, or "
+                         "kernels.proposal.fused_proposals(..., levels=)")
     if use_kernel:
         from .kernels.nms import nms_keep
 
@@ -241,7 +281,8 @@ def batched_non_max_suppression(
         )
     else:
         keep = _nms_keep_sorted_batched(
-            boxes_sorted, valid, float(iou_threshold), block, max_output_size
+            boxes_sorted, valid, float(iou_threshold), block, max_output_size,
+            levels_sorted,
         )
 
     # first `max_output_size` kept boxes per image, in score order: the

@@ -37,6 +37,7 @@ F = ctypes.c_float
 SIGNATURES = {
     "proposal": {
         "proposal_select": (P, P, P, P, P, P, I, I, I, I, F, P),
+        "proposal_select_levels": (P, P, P, P, P, P, P, I, I, I, I, F, P),
     },
     "ir_stage": {
         "ir_block": (P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, I, I, I, P),

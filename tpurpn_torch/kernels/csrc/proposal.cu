@@ -43,6 +43,15 @@
 // memory: 24 KB for the page plus 24 bytes a kept box, 31 KB at
 // max_output = 300; the block writes it out, coalesced, at the end.
 //
+// Levels (proposal_select_levels, the kernel proposal_kernel_levels): with a
+// level id per candidate, a box suppresses only boxes of its own level and the
+// kept sequence is detectron2's batched_nms by level (greedy NMS within each
+// level, the keeps merged in the given score order), cut at max_output. The
+// page and the kept list carry the ids (4 bytes a slot more); a candidate is
+// tested against the kept boxes of its level alone. Both kernels inline one
+// body (select_image<kLevels>), so the single-level instance is the code it
+// was before levels existed.
+//
 // Exactness: the IoU is computed op for op as tpurpn.boxes.generate_iou_map
 // (box_iou in common.cuh; area = max(y2-y1,0)*max(x2-x1,0); inter /
 // max(area_c + area_r - inter, 1e-8) > thr), symmetric bit for bit. The
@@ -62,13 +71,51 @@ constexpr int kChunk = 32;      // candidates decided a round, one a warp
 constexpr size_t kSmemLimit = 220 * 1024;  // dynamic, beside the static arrays
 static_assert(kWarps == kChunk, "one warp a candidate of the chunk");
 
-size_t smem_bytes(int cap) { return (size_t)kThreads * 24 + (size_t)cap * 24; }
+size_t smem_bytes(int cap, bool levels) {
+  return (size_t)kThreads * 24 + (size_t)cap * 24 + (levels ? (size_t)(kThreads + cap) * 4 : 0);
+}
 
-__global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
+// chunk_row and kept_suppresses (common.cuh) with a box suppressing only boxes
+// of its own level when kLevels; without, the common helpers themselves.
+template <bool kLevels>
+__device__ __forceinline__ uint32_t level_row(float4 v, float a, int lv, const float4* cbox,
+                                              const float* carea, const int* clev, int w,
+                                              float thr) {
+  if constexpr (!kLevels) {
+    return chunk_row(v, a, cbox, carea, w, thr);
+  } else {
+    const int lane = lane_id();
+    return __ballot_sync(0xffffffffu, lane < w && clev[lane] == lv &&
+                                          iou_above(v, a, cbox[lane], carea[lane], thr));
+  }
+}
+
+template <bool kLevels>
+__device__ __forceinline__ bool level_kept_suppresses(float4 v, float a, int lv,
+                                                      const float4* kbox, const float* karea,
+                                                      const int* klev, int kept, float thr) {
+  if constexpr (!kLevels) {
+    return kept_suppresses(v, a, kbox, karea, kept, thr);
+  } else {
+    const int lane = lane_id();
+    int hit = 0;
+    for (int k0 = 0; k0 < kept && !hit; k0 += 32) {
+      const int k = k0 + lane;
+      hit = __any_sync(0xffffffffu, k < kept && klev[k] == lv &&
+                                        iou_above(v, a, kbox[k], karea[k], thr));
+    }
+    return hit;
+  }
+}
+
+// One image's selection (block b); levels is (N,) int, one id a candidate
+// index, read only when kLevels.
+template <bool kLevels>
+__device__ __forceinline__ void select_image(
     const float* __restrict__ boxes, const float* __restrict__ scores,
-    const long long* __restrict__ order, float* __restrict__ roi_boxes,
-    float* __restrict__ roi_scores, int* __restrict__ num_valid, int N, int pre,
-    int max_output, int cap, float iou_threshold) {
+    const long long* __restrict__ order, const int* __restrict__ levels,
+    float* __restrict__ roi_boxes, float* __restrict__ roi_scores, int* __restrict__ num_valid,
+    int N, int pre, int max_output, int cap, float iou_threshold) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* cbox = reinterpret_cast<float4*>(smem);  // the page of candidates
   float* carea = reinterpret_cast<float*>(cbox + kThreads);
@@ -76,6 +123,8 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
   float4* kbox = reinterpret_cast<float4*>(cscore + kThreads);  // kept boxes
   float* karea = reinterpret_cast<float*>(kbox + cap);
   float* kscore = karea + cap;
+  int* clev = reinterpret_cast<int*>(kscore + cap);  // with kLevels only
+  int* klev = clev + kThreads;
   __shared__ uint32_t s_row[kChunk];
   __shared__ int s_hit[kChunk];
   __shared__ int s_kept;
@@ -98,6 +147,7 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
       cbox[t] = v;
       carea[t] = box_area(v);
       cscore[t] = sc[i];
+      if constexpr (kLevels) clev[t] = levels[i];
     }
     __syncthreads();
     for (int c0 = 0; c0 < n_page && kept < max_output; c0 += kChunk) {
@@ -107,10 +157,13 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
       if (warp < n && cscore[w] > -INFINITY) {
         const float4 v = cbox[w];
         const float a = carea[w];
+        const int lv = kLevels ? clev[w] : 0;
         // (b) bit j: candidate j < w of the chunk suppresses w
-        const uint32_t row = chunk_row(v, a, cbox + c0, carea + c0, warp, iou_threshold);
+        const uint32_t row = level_row<kLevels>(v, a, lv, cbox + c0, carea + c0, clev + c0,
+                                                warp, iou_threshold);
         // (a) any box kept before the chunk suppresses w
-        const int hit = kept_suppresses(v, a, kbox, karea, kept, iou_threshold);
+        const int hit = level_kept_suppresses<kLevels>(v, a, lv, kbox, karea, klev, kept,
+                                                       iou_threshold);
         if (lane == 0) {
           s_row[warp] = row;
           s_hit[warp] = hit;
@@ -129,6 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
           kbox[pos] = cbox[i];
           karea[pos] = carea[i];
           kscore[pos] = cscore[i];
+          if constexpr (kLevels) klev[pos] = clev[i];
         }
         if (lane == 0) s_kept = kept + __popc(keep);
       }
@@ -143,6 +197,24 @@ __global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
   if (t == 0) num_valid[b] = kept;
 }
 
+__global__ void __launch_bounds__(kThreads, 1) proposal_kernel(
+    const float* __restrict__ boxes, const float* __restrict__ scores,
+    const long long* __restrict__ order, float* __restrict__ roi_boxes,
+    float* __restrict__ roi_scores, int* __restrict__ num_valid, int N, int pre,
+    int max_output, int cap, float iou_threshold) {
+  select_image<false>(boxes, scores, order, nullptr, roi_boxes, roi_scores, num_valid, N, pre,
+                      max_output, cap, iou_threshold);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) proposal_kernel_levels(
+    const float* __restrict__ boxes, const float* __restrict__ scores,
+    const long long* __restrict__ order, const int* __restrict__ levels,
+    float* __restrict__ roi_boxes, float* __restrict__ roi_scores, int* __restrict__ num_valid,
+    int N, int pre, int max_output, int cap, float iou_threshold) {
+  select_image<true>(boxes, scores, order, levels, roi_boxes, roi_scores, num_valid, N, pre,
+                     max_output, cap, iou_threshold);
+}
+
 }  // namespace
 
 TPURPN_EXPORT int proposal_select(const float* boxes, const float* scores,
@@ -152,7 +224,7 @@ TPURPN_EXPORT int proposal_select(const float* boxes, const float* scores,
                                   cudaStream_t stream) {
   if (B <= 0 || pre <= 0 || pre > N || max_output <= 0) return cudaErrorInvalidValue;
   const int cap = min(max_output, pre);  // kept boxes never exceed either
-  const size_t smem = smem_bytes(cap);
+  const size_t smem = smem_bytes(cap, false);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       proposal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -160,6 +232,25 @@ TPURPN_EXPORT int proposal_select(const float* boxes, const float* scores,
   proposal_kernel<<<B, kThreads, smem, stream>>>(boxes, scores, order, roi_boxes,
                                                  roi_scores, num_valid, N, pre,
                                                  max_output, cap, iou_threshold);
+  return cudaGetLastError();
+}
+
+// proposal_select with a level id a candidate: levels (N,) int32.
+TPURPN_EXPORT int proposal_select_levels(const float* boxes, const float* scores,
+                                         const long long* order, const int* levels,
+                                         float* roi_boxes, float* roi_scores, int* num_valid,
+                                         int B, int N, int pre, int max_output,
+                                         float iou_threshold, cudaStream_t stream) {
+  if (B <= 0 || pre <= 0 || pre > N || max_output <= 0) return cudaErrorInvalidValue;
+  const int cap = min(max_output, pre);
+  const size_t smem = smem_bytes(cap, true);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      proposal_kernel_levels, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  proposal_kernel_levels<<<B, kThreads, smem, stream>>>(boxes, scores, order, levels, roi_boxes,
+                                                        roi_scores, num_valid, N, pre,
+                                                        max_output, cap, iou_threshold);
   return cudaGetLastError();
 }
 

@@ -15,6 +15,12 @@ The candidate order is computed outside the kernel, as ``tpurpn`` computes
 stable=True)`` breaks score ties toward the lower index like ``lax.top_k``
 (``torch.topk`` promises no tie order). ``_select`` launches the kernel on
 an order already computed, so the two can be timed apart.
+
+``levels`` (one int id a candidate) restricts suppression to boxes of one
+level: detectron2's ``batched_nms`` by level over the candidates of every
+level at once, its keeps in the one score order (``proposal_kernel_levels``
+on the card; the plain version masks its IoU tests by level). Boxes are
+never shifted apart by level: the IoUs are the boxes' own.
 """
 
 from __future__ import annotations
@@ -39,14 +45,17 @@ def fused_proposals_plain(
     iou_threshold: float,
     max_output: int,
     block: int = 128,
+    levels: torch.Tensor | None = None,
 ) -> Dict[str, torch.Tensor]:
     """The selection in plain PyTorch; same signature and result as the kernel."""
     top_idx = top_candidates(scores, pre)
     top_scores = torch.gather(scores, 1, top_idx)
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    top_levels = None if levels is None else levels.to(top_idx.device)[top_idx]
     sel, num_valid = batched_non_max_suppression(
         top_boxes, top_scores, max_output_size=max_output,
         iou_threshold=iou_threshold, block=block, presorted=True, use_kernel=False,
+        levels=top_levels,
     )
     valid = sel >= 0
     safe_sel = torch.clamp(sel.long(), min=0)
@@ -58,8 +67,12 @@ def fused_proposals_plain(
     return {"roi_boxes": roi_boxes, "roi_scores": roi_scores, "num_valid": num_valid}
 
 
-def _check(boxes, scores, pre, max_output):
+def _check(boxes, scores, pre, max_output, levels=None):
     B, N = scores.shape
+    if levels is not None and (levels.shape != (N,) or levels.dtype != torch.int32
+                               or levels.device != boxes.device):
+        raise ValueError(f"levels must be ({N},) int32 on the boxes' device, got "
+                         f"{tuple(levels.shape)} {levels.dtype} on {levels.device}")
     if boxes.shape != (B, N, 4) or boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise ValueError(
             f"fused_proposals takes (B, N, 4) / (B, N) f32, got "
@@ -71,7 +84,7 @@ def _check(boxes, scores, pre, max_output):
         raise ValueError("boxes and scores must be on one device")
 
 
-def _select(boxes, scores, order, iou_threshold, max_output):
+def _select(boxes, scores, order, iou_threshold, max_output, levels=None):
     """The selection kernel alone, on inputs ``_check`` passed and the
     candidate order ``top_candidates`` gave (``order`` (B, pre) int64, every
     index in [0, N)); counts one launch."""
@@ -85,12 +98,16 @@ def _select(boxes, scores, order, iou_threshold, max_output):
     roi_scores = torch.empty((B, max_output), dtype=torch.float32, device=dev)
     num_valid = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _build.load("proposal")
-    code = lib.proposal_select(
-        boxes.data_ptr(), scores.data_ptr(), order.data_ptr(),
-        roi_boxes.data_ptr(), roi_scores.data_ptr(), num_valid.data_ptr(),
-        B, N, pre, max_output, float(iou_threshold),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (roi_boxes.data_ptr(), roi_scores.data_ptr(), num_valid.data_ptr())
+    if levels is None:
+        code = lib.proposal_select(boxes.data_ptr(), scores.data_ptr(), order.data_ptr(), *outs,
+                                   B, N, pre, max_output, float(iou_threshold), stream)
+    else:
+        code = lib.proposal_select_levels(
+            boxes.data_ptr(), scores.data_ptr(), order.data_ptr(),
+            levels.contiguous().data_ptr(), *outs, B, N, pre, max_output,
+            float(iou_threshold), stream)
     _build.check(lib, "proposal", code)
     fused_proposals.launches += 1
     return {"roi_boxes": roi_boxes, "roi_scores": roi_scores, "num_valid": num_valid}
@@ -102,6 +119,7 @@ def fused_proposals(
     pre: int,
     iou_threshold: float,
     max_output: int,
+    levels: torch.Tensor | None = None,
 ) -> Dict[str, torch.Tensor]:
     """Top-``pre`` -> greedy NMS (IoU > ``iou_threshold`` suppresses) ->
     the first ``max_output`` kept boxes.
@@ -109,15 +127,19 @@ def fused_proposals(
     Args:
       boxes: (B, N, 4) f32 decoded candidates [y1, x1, y2, x2].
       scores: (B, N) f32 objectness scores.
+      levels: None, or (N,) int32 level ids: a box suppresses only boxes
+        of its own level.
 
     Returns {roi_boxes (B, max_output, 4), roi_scores (B, max_output), both
     zero past num_valid; num_valid (B,) int32}. A CUDA call counts once in
     ``launches``.
     """
     if boxes.device.type == "cpu":
-        return fused_proposals_plain(boxes, scores, pre, iou_threshold, max_output)
-    _check(boxes, scores, pre, max_output)
-    return _select(boxes, scores, top_candidates(scores, pre), iou_threshold, max_output)
+        return fused_proposals_plain(boxes, scores, pre, iou_threshold, max_output,
+                                     levels=levels)
+    _check(boxes, scores, pre, max_output, levels)
+    return _select(boxes, scores, top_candidates(scores, pre), iou_threshold, max_output,
+                   levels)
 
 
 fused_proposals.launches = 0

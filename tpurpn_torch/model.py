@@ -11,6 +11,12 @@ Compute is bf16 with f32 parameters; the head outputs are cast to f32. The
 backbone is MobileNetV2 or VGG16, as ``hp.backbone`` says. ``model.train()``
 is ``tpurpn``'s ``apply(..., train=True)``: it puts the BatchNorms in
 batch-statistics mode (``backbones.mobilenet_v2.BatchNorm``).
+
+``hp.multi_level`` (``vitdet_b``) builds ``PyramidRPN`` instead: the ViT and
+its simple feature pyramid (``backbones.vit``), and detectron2's
+``StandardRPNHead`` shared over the five levels (``head_convs`` 3x3 convs
+with ReLU, then 1x1 convs to A objectness logits and 4A deltas in (dx, dy,
+dw, dh) order).
 """
 
 from __future__ import annotations
@@ -19,11 +25,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .backbones import MobileNetV2Backbone, VGG16Backbone
+from .backbones import vit
 from .backbones.mobilenet_v2 import BatchNorm, Conv
 from .config import HyperParams
+from .profiling import span
 
 
 def default_device(device=None) -> torch.device:
@@ -72,8 +81,51 @@ class RPN(nn.Module):
         return apply_rpn_head(self, self.backbone(images))
 
 
-def get_model(hp: HyperParams) -> RPN:
+class PyramidRPN(nn.Module):
+    """NHWC image canvas (B, S, S, 3), normalised and padded -> every level's
+    (deltas (B, N, 4) in (dx, dy, dw, dh) order, objectness logits (B, N)),
+    f32, the levels concatenated P2 first, each row-major over (y, x,
+    anchor)."""
+
+    def __init__(self, hp: HyperParams):
+        super().__init__()
+        self.hp = hp
+        self.fold_bn = False
+        self.dtype = getattr(torch, hp.compute_dtype)
+        cfg = hp.vit
+        c = cfg.pyramid_channels
+        self.backbone = vit.ViT(cfg, hp.img_size, self.dtype)
+        self.pyramid = vit.SimpleFeaturePyramid(cfg.embed_dim, c, cfg.ln_eps)
+        self.head_convs = nn.ModuleList(nn.Conv2d(c, c, 3, padding=1)
+                                        for _ in range(cfg.head_convs))
+        self.objectness = nn.Conv2d(c, hp.anchor_count, 1)
+        self.deltas = nn.Conv2d(c, 4 * hp.anchor_count, 1)
+
+    def _head(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = self.dtype
+        for conv in self.head_convs:
+            x = torch.relu(F.conv2d(x, conv.weight.to(d), conv.bias.to(d), padding=1))
+        logits = F.conv2d(x, self.objectness.weight.to(d), self.objectness.bias.to(d))
+        deltas = F.conv2d(x, self.deltas.weight.to(d), self.deltas.bias.to(d))
+        b = x.shape[0]
+        return (deltas.permute(0, 2, 3, 1).reshape(b, -1, 4),
+                logits.permute(0, 2, 3, 1).reshape(b, -1))
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with span("rpn.backbone"):
+            x = self.backbone(images)
+        with span("rpn.pyramid"):
+            levels = self.pyramid(x)
+        with span("rpn.head"):
+            out = [self._head(f) for f in levels]
+            return (torch.cat([o[0] for o in out], 1).float(),
+                    torch.cat([o[1] for o in out], 1).float())
+
+
+def get_model(hp: HyperParams) -> nn.Module:
     """Mirror of the reference's ``get_model(hyper_params)``."""
+    if hp.multi_level:
+        return PyramidRPN(hp)
     return RPN(hp)
 
 
@@ -96,9 +148,15 @@ def init_model(model: RPN, generator: torch.Generator | None = None,
     The numbers differ from ``tpurpn``'s for the same seed (jax.random and
     torch.Generator are different generators); parity tests convert the
     flax variables instead (``tpurpn_torch.convert``).
+
+    A ``PyramidRPN`` takes detectron2's initializers instead
+    (``_init_pyramid_rpn``).
     """
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if isinstance(model, PyramidRPN):
+        _init_pyramid_rpn(model, generator)
+        return to_device(model, device)
     for m in model.modules():
         if isinstance(m, Conv):
             _lecun_normal_(m.weight, generator)
@@ -107,6 +165,38 @@ def init_model(model: RPN, generator: torch.Generator | None = None,
         elif isinstance(m, BatchNorm):
             m.reset_parameters()
     return to_device(model, device)
+
+
+def _init_pyramid_rpn(model: PyramidRPN, g: torch.Generator) -> None:
+    """detectron2's initialization of ViTDet's RPN: the ViT's linear layers
+    and absolute positions truncated normal at std 0.02, biases 0, LayerNorms
+    1 and 0, relative positions 0 (``rel_pos_zero_init``), the patch
+    embedding PyTorch's default; the pyramid's convs He-normal over fan-out
+    (``c2_msra_fill``); the RPN head normal at std 0.01, biases 0."""
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Linear):
+            nn.init.trunc_normal_(m.weight, 0.0, 0.02, -0.04, 0.04, generator=g)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, vit.Attention):
+            nn.init.zeros_(m.rel_pos_h)
+            nn.init.zeros_(m.rel_pos_w)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if name == "backbone.patch_embed":
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.weight, -bound, bound, generator=g)
+                nn.init.uniform_(m.bias, -bound, bound, generator=g)
+                continue
+            if name.startswith("pyramid."):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
+                                        generator=g)
+            else:
+                nn.init.normal_(m.weight, 0.0, 0.01, generator=g)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    nn.init.trunc_normal_(model.backbone.pos_embed, 0.0, 0.02, -0.04, 0.04, generator=g)
 
 
 def to_device(model: nn.Module, device=None) -> nn.Module:

@@ -11,6 +11,14 @@ back as fixed-size (B, topn, 4) plus a validity count per image.
 through ``kernels.proposal.fused_proposals``, which launches the CUDA
 kernel on the card (the counterpart of ``tpurpn``'s
 ``decode_outputs_packed`` + ``generate_proposals_packed``).
+
+With a feature pyramid (``hp.multi_level``: ViTDet) serving follows
+detectron2's test path: ``level_stem`` (the longest side resized to
+``img_size``, normalised, zero-padded to the square), the model, decode by
+``boxes.apply_deltas``, then ``select_levels``: the top ``pre_nms_topn``
+objectness logits of each level, clipped to the resized image, boxes of zero
+width or height dropped, NMS within a level, the first ``test_nms_topn``
+kept by logit; ``roi_scores`` are their sigmoids.
 """
 
 from __future__ import annotations
@@ -19,11 +27,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from .anchors import generate_anchors
-from .boxes import get_bboxes_from_deltas
+from .anchors import generate_anchors, level_sizes
+from .boxes import apply_deltas, get_bboxes_from_deltas
 from .config import HyperParams
-from .kernels.proposal import fused_proposals, fused_proposals_plain
+from .kernels.proposal import fused_proposals, fused_proposals_plain, top_candidates
 from .model import RPN, default_device
 from .profiling import span
 
@@ -64,6 +73,70 @@ def generate_proposals(
     )
 
 
+def resized_shape(h: int, w: int, size: int) -> Tuple[int, int]:
+    """detectron2's ``ResizeShortestEdge(size, max_size=size)`` output shape:
+    the shortest side to ``size`` unless the longest then exceeds it, which
+    is then ``size``; rounded half up."""
+    scale = size / min(h, w)
+    nh, nw = (size, scale * w) if h < w else (scale * h, size)
+    if max(nh, nw) > size:
+        scale = size / max(nh, nw)
+        nh, nw = nh * scale, nw * scale
+    return int(nh + 0.5), int(nw + 0.5)
+
+
+def level_stem(frames: torch.Tensor, hp: HyperParams, mean: torch.Tensor, std: torch.Tensor
+               ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(B, H, W, 3) RGB frames (uint8 or 0-255 floats) -> ((B, S, S, 3)
+    canvas in the compute dtype, the resized (h, w)): a bilinear resize with
+    half-pixel centres in f32 (antialiased when it shrinks), (x - mean) / std,
+    zeros below and right of the image. ``mean`` and ``std`` are (3,) f32 on
+    the frames' device."""
+    _, H, W, _ = frames.shape
+    S = hp.img_size
+    nh, nw = resized_shape(H, W, S)
+    x = F.interpolate(frames.permute(0, 3, 1, 2).float(), size=(nh, nw), mode="bilinear",
+                      align_corners=False, antialias=nh < H or nw < W)
+    x = ((x.permute(0, 2, 3, 1) - mean) / std).to(getattr(torch, hp.compute_dtype))
+    return F.pad(x, (0, 0, 0, S - nw, 0, S - nh)), (nh, nw)
+
+
+def select_levels(boxes: torch.Tensor, logits: torch.Tensor, hp: HyperParams,
+                  image_hw: Tuple[int, int], levels: torch.Tensor, topn: int
+                  ) -> Dict[str, torch.Tensor]:
+    """detectron2's ``find_top_rpn_proposals`` at test time on every anchor's
+    decoded box (B, N, 4) and logit (B, N): each level's ``pre_nms_topn``
+    best logits (ties to the lower index), concatenated P2 first; clipped to
+    the image; a box left without width or height, or not finite, drops out;
+    NMS within a level (``levels``: the (K,) int32 level of each
+    concatenated candidate); the first ``topn`` kept by logit, ties to the
+    lower concatenated index. ``roi_scores`` are the kept logits' sigmoids,
+    zero past ``num_valid``. ``select_levels.candidates`` counts the
+    candidates that enter NMS."""
+    B = boxes.shape[0]
+    idx, start = [], 0
+    for n in level_sizes(hp):
+        idx.append(top_candidates(logits[:, start:start + n], min(hp.pre_nms_topn, n)) + start)
+        start += n
+    idx = torch.cat(idx, 1)
+    cand = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    score = torch.gather(logits, 1, idx)
+    h, w = image_hw[0] / hp.img_size, image_hw[1] / hp.img_size
+    cand = torch.stack([cand[..., 0].clamp(0.0, h), cand[..., 1].clamp(0.0, w),
+                        cand[..., 2].clamp(0.0, h), cand[..., 3].clamp(0.0, w)], -1)
+    ok = ((cand[..., 2] > cand[..., 0]) & (cand[..., 3] > cand[..., 1])
+          & torch.isfinite(cand).all(-1) & torch.isfinite(score))
+    score = torch.where(ok, score, float("-inf"))
+    select_levels.candidates += B * idx.shape[1]
+    out = fused_proposals(cand, score, idx.shape[1], hp.nms_iou_threshold, topn, levels=levels)
+    valid = torch.arange(topn, device=boxes.device) < out["num_valid"][:, None]
+    out["roi_scores"] = torch.where(valid, torch.sigmoid(out["roi_scores"]), 0.0)
+    return out
+
+
+select_levels.candidates = 0
+
+
 def make_predict_fn(
     model: RPN,
     hp: HyperParams,
@@ -96,6 +169,10 @@ def make_predict_fn(
     batch (``train.shard_batch``), serves them, and gets the whole batch's
     proposals, gathered from every rank in rank order. ``fast=True`` with a
     mesh raises, as in ``tpurpn``.
+
+    A pyramid model (``hp.multi_level``) takes RGB frames of any size (uint8,
+    or 0-255 floats without ``from_uint8``) through ``level_stem`` and
+    selects with ``select_levels``; ``fast=True`` raises.
     """
     if fast and mesh is not None:
         raise ValueError("fast=True is the single-device serving path: use fast=False with "
@@ -107,6 +184,11 @@ def make_predict_fn(
     dtype = getattr(torch, hp.compute_dtype)
     if fast and not (hp.backbone == "mobilenet_v2" and model.fold_bn):
         raise ValueError("fast=True requires the folded-BN mobilenet_v2 model")
+    if hp.multi_level:
+        mean = torch.tensor(hp.pixel_mean, dtype=torch.float32, device=device)
+        std = torch.tensor(hp.pixel_std, dtype=torch.float32, device=device)
+        levels = torch.cat([torch.full((min(hp.pre_nms_topn, n),), lv, dtype=torch.int32)
+                            for lv, n in enumerate(level_sizes(hp))]).to(device)
 
     def forward(images: torch.Tensor):
         if from_uint8:
@@ -133,16 +215,30 @@ def make_predict_fn(
             return fast_mobilenet_forward(model, images)
         return model(images)
 
+    def level_proposals(images: torch.Tensor):
+        if from_uint8 and images.dtype != torch.uint8:
+            raise TypeError(f"from_uint8=True expects raw uint8 frames; got {images.dtype}")
+        with span("rpn.stem"):
+            canvas, hw = level_stem(images, hp, mean, std)
+        rpn_reg, logits = model(canvas)
+        with span("rpn.decode"):
+            boxes = apply_deltas(anchors[None], rpn_reg, hp.box_weights, hp.scale_clamp)
+        with span("rpn.select"):
+            return select_levels(boxes, logits, hp, hw, levels, out_topn)
+
     @torch.no_grad()
     def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
         with span("rpn.predict"):
             with span("rpn.upload"):
                 images = images.to(device)
-            rpn_reg, rpn_cls = forward(images)
-            with span("rpn.decode"):
-                boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
-            with span("rpn.select"):
-                out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+            if hp.multi_level:
+                out = level_proposals(images)
+            else:
+                rpn_reg, rpn_cls = forward(images)
+                with span("rpn.decode"):
+                    boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
+                with span("rpn.select"):
+                    out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
             if mesh is None:
                 return out
             group = mesh.get_group()

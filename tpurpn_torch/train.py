@@ -240,6 +240,9 @@ class _Step:
     update on this rank's rows."""
 
     def __init__(self, hp: HyperParams, augment: bool, grad_accum: int, use_kernel, mesh):
+        if hp.multi_level:
+            raise ValueError(f"training takes a single-level RPN; {hp.backbone!r} has a "
+                             "feature pyramid, which the port serves but does not train")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if grad_accum > 1 and mesh is not None:
