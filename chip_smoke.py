@@ -136,7 +136,12 @@ them:
    copies on levels of their own (kept beside their boxes; none kept
    without levels), the served output its own; the batch, the
    wrapper, its sort and kernel timed beside the level-wise walk's bound
-   (the ``kernels`` line's ``fused_proposals_levels`` row).
+   (the ``kernels`` line's ``fused_proposals_levels`` row). The 12 cores
+   are 12 ``relpos_attention_kernel`` launches; the first global and the
+   first window core's own q, k, v and tables hold the kernel against its
+   plain version (bf16 tolerance) and time it beside the plain version,
+   SDPA with the materialised bias (``library_ms``) and the bound (the
+   ``relpos_attention_global`` and ``_window`` rows).
 h5py, PIL and tensorboardX are reported in the ``setup`` line and then
 blocked for the run: no check depends on them.
 
@@ -1724,6 +1729,7 @@ def vitdet_phase(torch, args, dev, batch: int = 16):
     from tpurpn_torch.kernels.nms import nms_keep
     from tpurpn_torch.kernels.proposal import (
         _select, fused_proposals, fused_proposals_plain, top_candidates)
+    from tpurpn_torch.kernels.relpos_attention import relpos_attention
     from tpurpn_torch.model import to_device
 
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -1742,26 +1748,31 @@ def vitdet_phase(torch, args, dev, batch: int = 16):
     predict(frames)  # warm-up: the interpolated positions, cuDNN's plans
     torch.cuda.synchronize()
 
-    seen = []
-    orig = predict_module.fused_proposals
+    seen, core_args = [], {}
+    orig, orig_core = predict_module.fused_proposals, vit.attention_core
 
     def recorded(*a, levels=None, **k):
         out = orig(*a, levels=levels, **k)
         seen.append((a, levels, dict(out)))  # select_levels rebinds roi_scores in ``out``
         return out
 
-    fused_proposals.launches = 0
+    def recorded_core(*a):  # the first core of each kind: its q, k, v, tables, side
+        core_args.setdefault(a[-1], a[:-1])
+        return orig_core(*a)
+
+    fused_proposals.launches = relpos_attention.launches = 0
     for kind in vit.attention_core.calls:
         vit.attention_core.calls[kind] = 0
     predict_module.select_levels.candidates = 0
-    predict_module.fused_proposals = recorded
+    predict_module.fused_proposals, vit.attention_core = recorded, recorded_core
     try:
         out = predict(frames)
         torch.cuda.synchronize()
     finally:
-        predict_module.fused_proposals = orig
+        predict_module.fused_proposals, vit.attention_core = orig, orig_core
     launches = fused_proposals.launches
-    cores = dict(vit.attention_core.calls)
+    attn_launches = relpos_attention.launches
+    cores = dict(orig_core.calls)
     candidates = predict_module.select_levels.candidates
     topn, thr = hp.test_nms_topn, hp.nms_iou_threshold
     per_image = sum(min(hp.pre_nms_topn, n) for n in level_sizes(hp))
@@ -1769,6 +1780,8 @@ def vitdet_phase(torch, args, dev, batch: int = 16):
     require(launches == 1 and len(seen) == 1, f"vitdet serving: {launches} proposal launches")
     require(cores == {"window": hp.vit.depth - n_global, "global": n_global},
             f"vitdet attention cores {cores}")
+    require(attn_launches == hp.vit.depth and sorted(core_args) == ["global", "window"],
+            f"vitdet serving: {attn_launches} relpos_attention launches for {hp.vit.depth} cores")
     require(candidates == batch * per_image, f"vitdet candidates into NMS {candidates}")
     check_proposals(torch, out, batch, topn)
     (cand, score, pre, _, _), levels, k_out = seen[0]
@@ -1817,25 +1830,96 @@ def vitdet_phase(torch, args, dev, batch: int = 16):
             torch, lambda: fused_proposals(cand, score, pre, thr, topn, levels=levels),
             ("proposal_kernel_levels",), fused_proposals)
     bound, by, visited = proposal_bound(torch, cand, score, pre, topn, thr, levels)
+    peak = torch.cuda.max_memory_allocated()  # the served batches', before the checks below
+    attention = {kind: attention_check(torch, relpos_attention, vit, *core_args[kind], n_cores)
+                 for kind, n_cores in (("global", n_global),
+                                       ("window", hp.vit.depth - n_global))}
     nv = k_out["num_valid"]
     phase = {"phase": "vitdet_serving", "batch": batch, "frames": "SyntheticVOC 480x640 uint8",
              "img_size": hp.img_size, "anchors": hp.total_anchors,
              "candidates_per_image": per_image, "topn": topn,
-             "launches": {"proposals": launches}, "attention_cores": cores,
+             "launches": {"proposals": launches, "relpos_attention": attn_launches},
+             "attention_cores": cores, "attention": attention,
              "num_valid_min": int(nv.min()), "num_valid_mean": float(nv.float().mean()),
              "kernel_vs_plain": "bit-exact", "copies_kept_mean": float(copies.float().mean()),
              "ms_per_batch": ms, "img_per_s": batch / ms * 1e3,
              "device_busy_ms": busy, "device_ops": ops,
-             "memory_peak_bytes": torch.cuda.max_memory_allocated(),
-             "memory_held_before_bytes": held,
+             "memory_peak_bytes": peak, "memory_held_before_bytes": held,
              "proposals": {"ms": pr_ms, "sort_ms": sort_ms, "select_ms": select_ms,
                            "device_ms": device, "wrapper_device_ms": wrapper_device,
                            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                            "visited_mean": float(visited.float().mean()),
                            "visited_max": int(visited.max())}}
-    del predict, model, seen, cand, score, k_out, p_out, twin, twin_k, twin_p, out
+    del predict, model, seen, cand, score, k_out, p_out, twin, twin_k, twin_p, out, core_args
     torch.cuda.empty_cache()
     return phase
+
+
+def attention_bound(q, side, cores=1):
+    """(bound ms, bound by) of ``cores`` attention cores over q's shape (N,
+    h, side^2, d): q k^T, attention x v and the two q . R products at the
+    bf16 peak, against q, k and v read, the output written and the two
+    tables read once (bf16); as portbench's counts_levels.global_attn_bound."""
+    n, h, t, d = q.shape
+    ops = cores * n * h * (2 * 2 * t * t * d + 2 * 2 * t * side * d)
+    nbytes = cores * (n * t * h * d * 2 * 4 + 2 * (2 * side - 1) * d * 2)
+    op_ms, byte_ms = ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def attention_check(torch, relpos_attention, vit, q, k, v, rel_h, rel_w, side, n_cores):
+    """One served attention core's own q, k, v and tables: relpos_attention
+    held against its plain version (each output within 2^-7 of its magnitude
+    plus 2^-8 of the largest, the mean error under 1e-3: the kernel rounds P
+    and its output to bf16, the plain version neither), then timed: the
+    wrapper (CUDA events), the kernel's device time, the plain version, and
+    SDPA with the bias materialised by the expansion product (the port's
+    core before the kernel) as ``library_ms``; the bound of one core and of
+    the batch's ``n_cores`` cores of this kind."""
+    import torch.nn.functional as F
+
+    from tpurpn_torch.kernels.relpos_attention import relpos_attention_plain
+
+    n, h, t, d = q.shape
+    with torch.no_grad():
+        got = relpos_attention(q, k, v, rel_h, rel_w, side)
+        err_max, err_sum = 0.0, 0.0
+        for a in range(0, n, 8):
+            want = relpos_attention_plain(q[a:a + 8], k[a:a + 8], v[a:a + 8], rel_h, rel_w, side)
+            err = (got[a:a + 8].float() - want.float()).abs()
+            limit = 2 ** -7 * want.float().abs() + 2 ** -8 * float(want.float().abs().max())
+            require(bool((err <= limit).all()), f"relpos_attention vs plain at side {side}: "
+                    f"max abs err {float(err.max())}")
+            err_max, err_sum = max(err_max, float(err.max())), err_sum + float(err.sum())
+        require(err_sum / got.numel() < 1e-3,
+                f"relpos_attention vs plain at side {side}: mean err {err_sum / got.numel()}")
+
+        def sdpa():
+            rq = q.reshape(n, h, side, side, d)
+            rel_h_ = torch.einsum("nhijc,ikc->nhijk", rq, vit.rel_table(rel_h, side).to(q.dtype))
+            rel_w_ = torch.einsum("nhijc,jlc->nhijl", rq, vit.rel_table(rel_w, side).to(q.dtype))
+            rel = torch.cat([rel_h_, rel_w_], -1).reshape(n, h, t, 2 * side)
+            bias = torch.matmul(rel, vit.expansion(side, q.device, q.dtype))[..., :t]
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+        call = lambda: relpos_attention(q, k, v, rel_h, rel_w, side)  # noqa: E731
+        ms = time_ms(torch, call, 20)
+        device, wrapper_device = kernel_device_ms(torch, call, ("relpos_attention_kernel",),
+                                                  relpos_attention)
+        plain_ms = time_ms(torch, lambda: relpos_attention_plain(q, k, v, rel_h, rel_w, side),
+                           1, warmup=1)
+        library_ms = time_ms(torch, sdpa, 5)
+        m = min(n, 8)
+        sdpa_err = float((sdpa()[:m].float() - relpos_attention_plain(
+            q[:m], k[:m], v[:m], rel_h, rel_w, side).float()).abs().max())
+    bound, by = attention_bound(q, side)
+    batch_bound, _ = attention_bound(q, side, n_cores)
+    return {"shape": [n, h, t, d], "side": side, "max_abs_err": err_max,
+            "mean_abs_err": err_sum / got.numel(), "library_max_abs_err_first8": sdpa_err,
+            "ms": ms, "device_ms": device, "wrapper_device_ms": wrapper_device,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "cores_a_batch": n_cores, "batch_bound_ms": batch_bound,
+            "roofline_pct": 100.0 * bound / device if device else None}
 
 
 def check_proposals(torch, out, B, topn) -> None:
@@ -1907,7 +1991,7 @@ def main() -> int:
 
     # 1. build every kernel of the path, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    sources = ("proposal", "ir_stage", "targets", "nms", "prefix")
+    sources = ("proposal", "ir_stage", "targets", "nms", "prefix", "relpos_attention")
     _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2503,6 +2587,10 @@ def main() -> int:
          **{f: vd["proposals"][f] for f in ("ms", "device_ms", "wrapper_device_ms", "select_ms",
                                             "sort_ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
+        *({"name": f"relpos_attention_{kind}", "kernel": "relpos_attention_kernel",
+           "route": "cuda", "source": "tpurpn_torch/kernels/csrc/relpos_attention.cu",
+           "replaces": None, "launches": vd["launches"]["relpos_attention"],
+           "match": "bf16 tolerance", **vd["attention"][kind]} for kind in ("global", "window")),
         {"name": "fused_rpn_targets", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:355",

@@ -45,7 +45,7 @@ from tpurpn.kernels.ir_stage_pallas import pack_stage_weights as j_pack_stage_we
 from tpurpn.kernels.proposal_pallas import fused_proposals_planes
 from tpurpn.predict import generate_proposals as j_generate_proposals
 import tpurpn_torch
-from tpurpn_torch.kernels import _build, ir_stage, nms, prefix, proposal, targets
+from tpurpn_torch.kernels import _build, ir_stage, nms, prefix, proposal, relpos_attention, targets
 
 from test_torch_model import IMG_SIZES, close, flax_mobilenet, images, port
 
@@ -676,7 +676,7 @@ HP_VGG = tpurpn_torch.get_hyper_params("vgg16")
 
 @pytest.mark.parametrize("kernel", ["ir_stage", "proposals", "proposal_select", "targets",
                                     "iou_matching", "nms", "prefix_pointwise",
-                                    "prefix_depthwise"])
+                                    "prefix_depthwise", "relpos_attention"])
 def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
     if kernel == "proposal_select":
         fn = proposal.fused_proposals  # _select counts its launches here
@@ -712,6 +712,10 @@ def test_wrappers_build_the_kernel_or_raise_off_the_cpu(no_nvcc, kernel):
         dw = prefix.pack_depthwise(port(128, folded=True).backbone.block_3.block_3_depthwise)
         args = (_meta((2, 9, 9, 144), torch.bfloat16),
                 prefix.Depthwise(dw.taps.to("meta"), dw.b.to("meta"), dw.stride))
+    elif kernel == "relpos_attention":  # a window block's core: 2 windows, 12 heads, side 14
+        fn = relpos_attention.relpos_attention
+        qkv = _meta((2, 196, 3, 12, 64), torch.bfloat16).permute(2, 0, 3, 1, 4)
+        args = (qkv[0], qkv[1], qkv[2], _meta((27, 64)), _meta((27, 64)), 14)
     else:
         fn = nms.nms_keep
         args = (_meta((2, 500, 4)), _meta((2, 500), torch.bool), 0.7, 50)

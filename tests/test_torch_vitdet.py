@@ -6,9 +6,9 @@ tokens) and window 3, so the grid pads to 9 x 9. Weights are the
 reference's draw (every tensor non-zero).
 
 Tolerances: the port in f32 computes the reference's equations with other
-kernels (SDPA against a materialised softmax, one patch matmul against a
-strided conv, einsum orders), so f32 rounding apart: 1e-5 of the values'
-scale. In bf16 the forward's outputs are held at 0.05 of the largest
+kernels (the attention core by index gathers against the reference's
+broadcasts, one patch matmul against a strided conv, einsum orders), so f32
+rounding apart: 1e-5 of the values' scale. In bf16 the forward's outputs are held at 0.05 of the largest
 magnitude (eight bf16 roundings a block, twelve blocks' worth of residual
 sums at full size: PERF.md records the card's readings). Selection is held
 bit for bit on the same f32 candidates, as the card's kernel is.
@@ -32,6 +32,7 @@ from tpurpn_torch import profiling
 from tpurpn_torch.anchors import level_sizes
 from tpurpn_torch.backbones import vit
 from tpurpn_torch.kernels import proposal
+from tpurpn_torch.kernels import relpos_attention as RA
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from portbench.reference import vitdet as R  # noqa: E402
@@ -249,6 +250,7 @@ def test_span_tree_and_counters(params):
     assert kids(names.index("rpn.backbone")) == ["rpn.attn.window", "rpn.attn.global"] * 2
     assert vit.attention_core.calls["window"] - calls["window"] == 2
     assert vit.attention_core.calls["global"] - calls["global"] == 2
+    assert RA.relpos_attention.launches == 0  # the CPU runs the plain version
     assert P.select_levels.candidates - n0 == 2 * (200 + 200 + 192 + 48 + 12)
     # at the published sizes: 8 window and 4 global cores, 4,768 candidates an image
     hp = T.get_hyper_params("vitdet_b")
@@ -256,6 +258,73 @@ def test_span_tree_and_counters(params):
     assert windows.count(14) == 8 and windows.count(0) == 4
     assert sum(min(hp.pre_nms_topn, n) for n in level_sizes(hp)) == 4768
     assert hp.total_anchors == 261888
+
+
+def expansion_formula(q, k, v, rel_pos_h, rel_pos_w, side, mask=None):
+    """The core as the port computed it before its kernel, in f32: the bias
+    written by one product with the 0/1 expansion matrix, then softmax(q
+    k^T / sqrt(d) + bias) v (``mask``: keys set to -inf)."""
+    n, h, t, d = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    rq = q.reshape(n, h, side, side, d)
+    rel_h = torch.einsum("nhijc,ikc->nhijk", rq, vit.rel_table(rel_pos_h.float(), side))
+    rel_w = torch.einsum("nhijc,jlc->nhijl", rq, vit.rel_table(rel_pos_w.float(), side))
+    rel = torch.cat([rel_h, rel_w], -1).reshape(n, h, t, 2 * side)
+    bias = (rel @ vit.expansion(side, "cpu", torch.float32))[..., :t]
+    if mask is not None:
+        bias = bias.masked_fill(mask, float("-inf"))
+    return (q @ k.transpose(-2, -1) / math.sqrt(d) + bias).softmax(-1) @ v
+
+
+def window_qkv(side, pad, heads=2, d=16, seed=0):
+    """q, k, v of a window block's attention over a side x side window whose
+    last ``pad`` rows and columns are the zero pad tokens (their k and v are
+    the qkv bias), as (N, h, T, d) views of one qkv product; the tables
+    drawn at std 2."""
+    g = torch.Generator().manual_seed(seed)
+    c = heads * d
+    x = torch.randn((3, side, side, c), generator=g)
+    x[:, side - pad:] = 0.0
+    x[:, :, side - pad:] = 0.0
+    w = torch.randn((3 * c, c), generator=g) * c ** -0.5
+    bias = torch.randn((3 * c,), generator=g)
+    qkv = F.linear(x, w, bias).reshape(3, side * side, 3, heads, d).permute(2, 0, 3, 1, 4)
+    tables = [torch.randn((2 * side - 1, d), generator=g) * 2.0 for _ in range(2)]
+    return qkv[0], qkv[1], qkv[2], tables[0], tables[1]
+
+
+@pytest.mark.parametrize("side,pad", [(14, 6), (5, 0), (9, 2), (8, 0), (3, 1)],
+                         ids=["side14-pad6", "side5", "side9-pad2", "side8", "side3-pad1"])
+def test_relpos_attention_plain_matches_the_expansion_formula(side, pad):
+    """The core's plain version (the CPU's path) against the formula the
+    port used before: sides that do not fill a 64-key tile (T = 196, 25,
+    81, 64, 9), the pad tokens as keys that count (masking them changes the
+    output), f32 rounding apart."""
+    q, k, v, rh, rw = window_qkv(side, pad)
+    got = RA.relpos_attention(q, k, v, rh, rw, side)
+    assert got.shape == q.shape and RA.relpos_attention.launches == 0
+    want = expansion_formula(q, k, v, rh, rw, side)
+    close(got, want, 1e-5)
+    if pad:
+        cols = torch.arange(side * side)
+        is_pad = (cols // side >= side - pad) | (cols % side >= side - pad)
+        masked = expansion_formula(q, k, v, rh, rw, side, mask=is_pad)
+        assert (masked - got).abs().max() > 1e-3
+    # both relative terms are live
+    for i in range(2):
+        tabs = [rh, rw]
+        tabs[i] = torch.zeros_like(tabs[i])
+        assert (RA.relpos_attention(q, k, v, *tabs, side) - got).abs().max() > 1e-3
+
+
+def test_relpos_attention_refuses_what_it_does_not_compute():
+    q, k, v, rh, rw = window_qkv(5, 0)
+    with pytest.raises(ValueError, match="grid"):
+        RA.relpos_attention(q, k, v, rh, rw, 4)
+    with pytest.raises(ValueError, match="rel_pos_w"):
+        RA.relpos_attention(q, k, v, rh, rw[:-1], 5)
+    with pytest.raises(ValueError, match="shape"):
+        RA.relpos_attention(q, k[:, :1], v, rh, rw, 5)
 
 
 def test_init_model_draws_detectron2s_initialization():
@@ -364,3 +433,44 @@ def test_vitdet_serves_on_the_card(cuda):
     boxes, logits, hw = R.candidates({k: v.to(cuda) for k, v in p.items()}, frames().to(cuda), CFG)
     ref = R.select(boxes, logits, hw, CFG)
     assert np.abs(out["num_valid"].cpu().numpy() - ref["num_valid"]).max() <= 2
+
+
+def card_qkv(n, side, cuda, seed, heads=12, d=64):
+    """ViTDet-B's q, k, v as views of one (n, side^2, 3, heads, d) bf16 qkv
+    product on the card, and tables drawn at std 2."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((n, side * side, 3, heads, d), generator=g, device=cuda)
+    qkv = qkv.to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+    tables = [torch.randn((2 * side - 1, d), generator=g, device=cuda) * 2.0 for _ in range(2)]
+    return qkv[0], qkv[1], qkv[2], tables[0], tables[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,side", [(2, 64), (16, 64), (400, 14)],
+                         ids=["global-b2", "global-b16", "window-400"])
+def test_relpos_attention_kernel_matches_plain_at_published_shapes(cuda, n, side):
+    """One relpos_attention_kernel launch against the plain version on the
+    card, on the qkv product's views. Tolerance: the kernel rounds P to
+    bf16 before P V (2^-9 of each weight) and its output to bf16 (half an
+    ulp, 2^-9), where the plain version keeps f32; so each output within
+    2^-7 of its magnitude plus 2^-8 of the largest, and the mean error
+    under 1e-3 (the card read 1.3e-4 and at most one bf16 ulp)."""
+    q, k, v, rh, rw = card_qkv(n, side, cuda, seed=n + side)
+    n0 = RA.relpos_attention.launches
+    with torch.no_grad():
+        got = RA.relpos_attention(q, k, v, rh, rw, side)
+        torch.cuda.synchronize()
+        assert RA.relpos_attention.launches - n0 == 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        assert got.permute(0, 2, 1, 3).is_contiguous()  # (N, T, h, d): proj's reshape is a view
+        err_max, err_mean = 0.0, 0.0
+        for a in range(0, n, 8):
+            want = RA.relpos_attention_plain(q[a:a + 8], k[a:a + 8], v[a:a + 8], rh, rw, side)
+            err = (got[a:a + 8].float() - want.float()).abs()
+            scale = float(want.float().abs().max())
+            assert bool((err <= 2 ** -7 * want.float().abs() + 2 ** -8 * scale).all())
+            err_max, err_mean = max(err_max, float(err.max())), err_mean + float(err.sum())
+    assert err_mean / got.numel() < 1e-3
+    with pytest.raises(ValueError, match="backward"):
+        RA.relpos_attention(q, k, v, rh.requires_grad_(), rw, side)
+

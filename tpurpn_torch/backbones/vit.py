@@ -28,10 +28,14 @@ Equations (C channels, h heads of d = C / h, tokens on an H x W grid):
 
 Layout: tokens are NHWC (B, H, W, C), as in detectron2; the pyramid's convs
 run on NCHW views with channels-last strides. Compute is in the model's
-dtype (bf16) with f32 parameters cast at each use; the attention core is
-``scaled_dot_product_attention`` with the two relative-position terms summed
-into its additive mask (a (B, h, T, T) bias: materialised, written by one
-product with a 0/1 expansion matrix).
+dtype (bf16) with f32 parameters cast at each use. The attention core is
+``kernels.relpos_attention``: on the card one launch a core of a
+hand-written flash-attention kernel that computes q . R_h and q . R_w itself
+and adds the two terms to each tile of scores on the SM (f32 scores, bias
+and softmax), reading q, k and v in place from the qkv product's (B, T, 3,
+h, d) output and writing (B, T, h, d), so that ``proj``'s reshape is a view;
+on the CPU its plain version, the same equations in f32. No (B, h, T, T)
+bias exists.
 
 Spans: ``rpn.attn.window`` and ``rpn.attn.global`` around each attention
 core (q, k, v to the per-head output, relative positions included; the
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.relpos_attention import relpos_attention
 from ..profiling import span
 
 
@@ -68,7 +73,10 @@ class LayerNorm(nn.LayerNorm):
 
 def rel_table(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
     """(size, size, d) table R[i, k] = rel_pos[i - k + size - 1] (query and key
-    grids of one size, as in every ViTDet block)."""
+    grids of one size, as in every ViTDet block). With :func:`expansion`, the
+    materialised form of the bias that ``relpos_attention`` computes in
+    place: the tests hold the core against it, and portbench's readings
+    build a core with the window's pad keys masked from it."""
     if rel_pos.shape[0] != 2 * size - 1:
         raise ValueError(f"a relative-position table of {rel_pos.shape[0]} rows for side {size}")
     idx = torch.arange(size, device=rel_pos.device)
@@ -98,18 +106,13 @@ def expansion(side: int, device, dtype) -> torch.Tensor:
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_pos_h: torch.Tensor,
                    rel_pos_w: torch.Tensor, side: int, kind: str) -> torch.Tensor:
-    """Attention of (N, h, side*side, d) q, k, v over a side x side grid with
-    decomposed relative positions; returns the per-head output. The bias is
-    written by one product (``expansion``), not a broadcast add."""
+    """Attention of (N, h, side*side, d) q, k, v (any strides: the qkv
+    product's views) over a side x side grid with decomposed relative
+    positions; returns the per-head output (N, h, T, d), on the card a view
+    of (N, T, h, d). One ``relpos_attention`` launch on the card."""
     _CORE_CALLS[kind] += 1
     with span(f"rpn.attn.{kind}"):
-        n, h, t, d = q.shape
-        rq = q.reshape(n, h, side, side, d)
-        rel_h = torch.einsum("nhijc,ikc->nhijk", rq, rel_table(rel_pos_h, side).to(q.dtype))
-        rel_w = torch.einsum("nhijc,jlc->nhijl", rq, rel_table(rel_pos_w, side).to(q.dtype))
-        rel = torch.cat([rel_h, rel_w], -1).reshape(n, h, t, 2 * side)
-        bias = torch.matmul(rel, expansion(side, q.device, q.dtype))[..., :t]
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        return relpos_attention(q, k, v, rel_pos_h, rel_pos_w, side)
 
 
 _CORE_CALLS = {"window": 0, "global": 0}

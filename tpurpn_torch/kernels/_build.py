@@ -56,6 +56,9 @@ SIGNATURES = {
         "prefix_pointwise": (P, P, P, P, I, P, I, I, I, I, P),
         "prefix_depthwise": (P, P, P, P, I, I, I, I, I, P),
     },
+    "relpos_attention": {
+        "relpos_attention": (P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
