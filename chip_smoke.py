@@ -1952,7 +1952,8 @@ def main() -> int:
     from tpurpn_torch import fold_batch_norm, get_hyper_params, get_model, init_model
     from tpurpn_torch.data import preprocess_batch
     from tpurpn_torch.inference import _FUSED_BLOCKS, fast_mobilenet_forward
-    from tpurpn_torch.kernels import _build, ir_stage as ir_stage_module
+    from tpurpn_torch import cache
+    from tpurpn_torch.kernels import _build
     from tpurpn_torch.kernels.ir_stage import (
         fused_ir_stage, fused_ir_stage_plain, kernel_pack, kernel_pack_cached,
         pack_stage_weights, stage_weights_cached)
@@ -2276,10 +2277,9 @@ def main() -> int:
               "num_valid_min": int(out["num_valid"].min()),
               "num_valid_mean": float(out["num_valid"].float().mean())})
 
-    # serving under inference mode, with the weight caches emptied first so
-    # that the stage is packed inside it: the same proposals
-    ir_stage_module._stages.entries.clear()
-    ir_stage_module._packs.entries.clear()
+    # serving under inference mode, with the derived weights emptied first so
+    # that they are made inside it: the same proposals
+    cache.clear()
     with torch.inference_mode():
         out_im = predict(images)
     torch.cuda.synchronize()

@@ -162,6 +162,27 @@ def _bn_layer(mesh):
             "mean": mean, "var": var}
 
 
+def _replicate_serves_rank_0(mesh, backbone, inp):
+    """A bf16 model from a rank-dependent start, served once (its compute
+    copies made), then replicated: serving must read rank 0's weights, as a
+    fresh model of them does (the broadcasts bump the versions)."""
+    hp = tpurpn_torch.get_hyper_params(backbone, **{**HP_KW, "compute_dtype": "bfloat16"})
+
+    def model():
+        m = tpurpn_torch.get_model(hp)
+        m.load_state_dict(inp[f"sd_{backbone}"])
+        return tpurpn_torch.model.to_device(m, "cpu")
+
+    state = train.create_train_state(hp, model=model())
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.add_(mesh.get_local_rank())
+        state.model(inp["serve"])
+        state = train.replicate(mesh, state)
+        got, ref = state.model(inp["serve"]), model()(inp["serve"])
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def worker(rank: int, store: str, inputs: str, outputs: str) -> None:
     """One rank of the two: every mesh-side check, results to ``outputs``."""
     torch.set_num_threads(1)
@@ -178,7 +199,12 @@ def worker(rank: int, store: str, inputs: str, outputs: str) -> None:
             with torch.no_grad():
                 for p in state.model.parameters():
                     p.add_(rank)
+            versions = [t._version for t in train._state_tensors(state)]
             state = train.replicate(mesh, state)
+            res[f"replicate_{bb}"] = {
+                "bumped": all(t._version > v for t, v in
+                              zip(train._state_tensors(state), versions)),
+                "serves_rank_0": _replicate_serves_rank_0(mesh, bb, inp)}
             step = train.make_train_step(_hp(bb), mesh=mesh)
             state, m = step(state, *train.shard_batch(mesh, *batch),
                             flip=inp[f"flip_{bb}"], rand_bits=inp[f"bits_{bb}"])
@@ -355,6 +381,7 @@ def test_mesh_step_matches_the_single_device_step(run, bb):
     state, m = _single_step(inp, bb)
     params, stats, _ = _as_flax(bb, _tensors(state))
     for res in results:  # every rank holds the global metrics and the same state
+        assert res[f"replicate_{bb}"] == {"bumped": True, "serves_rank_0": True}
         got_m, got = res[f"step_{bb}"]
         _check_metrics(got_m, m)
         g_params, g_stats, _ = _as_flax(bb, got)

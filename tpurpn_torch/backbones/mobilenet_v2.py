@@ -12,9 +12,11 @@ Layout: the public input and output are NHWC, as in ``tpurpn``. Inside, the
 tensors are NCHW views with channels-last strides (``permute`` of an NHWC
 tensor), the layout cuDNN runs these convs in.
 
-Numerics: bf16 compute with f32 parameters (cast at each conv), BatchNorm in
-f32 with eps 1e-3 and Keras/flax momentum 0.99 (torch ``momentum=0.01``),
-output cast back to bf16 — flax's BatchNorm arithmetic.
+Numerics: bf16 compute with f32 parameters (each conv reads their bf16 copy,
+``cache.compute_copy``: a cast at each use while autograd records, else one
+copy per parameter version), BatchNorm in f32 with eps 1e-3 and Keras/flax
+momentum 0.99 (torch ``momentum=0.01``), output cast back to bf16 — flax's
+BatchNorm arithmetic.
 
 TF "SAME" at stride 2 pads asymmetrically: (0, 1) at even input sizes (500,
 250) and (1, 1) at odd ones (125, 63). ``nn.Conv2d(padding=1)`` would pad
@@ -30,6 +32,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..cache import compute_copy
 
 # (num_blocks, expansion, channels, first_stride) per stage, Keras numbering
 _STAGES = (
@@ -59,8 +63,9 @@ def same_pad(size: int, k: int, s: int):
 
 
 class Conv(nn.Conv2d):
-    """Conv2d with TF SAME padding and the flax dtype policy: weights (f32)
-    cast to the input's compute dtype at each call."""
+    """Conv2d with TF SAME padding and the flax dtype policy: the f32
+    weight and bias enter as their copies in the input's compute dtype
+    (``cache.compute_copy``)."""
 
     def __init__(self, in_ch, out_ch, k, stride=1, groups=1, bias=False):
         super().__init__(in_ch, out_ch, k, stride=stride, groups=groups, bias=bias)
@@ -75,9 +80,9 @@ class Conv(nn.Conv2d):
             (t, b), (l, r) = (same_pad(x.shape[2], k, s), same_pad(x.shape[3], k, s))
             x = F.pad(x, (l, r, t, b)).contiguous(memory_format=torch.channels_last)
             pad = 0
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        bias = None if self.bias is None else compute_copy(self.bias, x.dtype)
         return F.conv2d(
-            x, self.weight.to(x.dtype), bias, self.stride, pad, 1, self.groups
+            x, compute_copy(self.weight, x.dtype), bias, self.stride, pad, 1, self.groups
         )
 
 

@@ -9,7 +9,8 @@ Equations (C channels, h heads of d = C / h, tokens on an H x W grid):
 * patch embedding: a P x P convolution at stride P (here the same product
   as one matmul over the flattened patches), plus the absolute positions:
   the pre-training grid's table (a cls row first, dropped) interpolated
-  bicubically (``align_corners=False``) to H x W, cached per weight version;
+  bicubically (``align_corners=False``) to H x W, held in the compute dtype
+  once per weight version (``cache.derived``);
 * a block: ``x + attn(norm1(x))`` then ``x + fc2(gelu(fc1(norm2(x))))``,
   LayerNorm eps 1e-6, exact GELU. A window block zero-pads ``norm1(x)`` to a
   multiple of the window ``w`` and attends within each w x w window; its pad
@@ -28,7 +29,9 @@ Equations (C channels, h heads of d = C / h, tokens on an H x W grid):
 
 Layout: tokens are NHWC (B, H, W, C), as in detectron2; the pyramid's convs
 run on NCHW views with channels-last strides. Compute is in the model's
-dtype (bf16) with f32 parameters cast at each use. The attention core is
+dtype (bf16) with f32 parameters, read through their compute copies
+(``cache.compute_copy``: a cast at each use while autograd records, else one
+copy per parameter version). The attention core is
 ``kernels.relpos_attention``: on the card one launch a core of a
 hand-written flash-attention kernel that computes q . R_h and q . R_w itself
 and adds the two terms to each tile of scores on the SM (f32 scores, bias
@@ -45,30 +48,31 @@ counts the cores by kind.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..cache import compute_copy, derived
 from ..kernels.relpos_attention import relpos_attention
 from ..profiling import span
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` (with a bias) with f32 parameters cast to the input's
-    dtype at each call."""
+    """``nn.Linear`` (with a bias) with f32 parameters read in the input's
+    dtype (``cache.compute_copy``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, compute_copy(self.weight, x.dtype), compute_copy(self.bias, x.dtype))
 
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last dim, affine parameters in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+        return F.layer_norm(x, self.normalized_shape, compute_copy(self.weight, x.dtype),
+                            compute_copy(self.bias, x.dtype), self.eps)
 
 
 def rel_table(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
@@ -188,32 +192,36 @@ class ViT(nn.Module):
             Block(c, cfg.num_heads, int(c * cfg.mlp_ratio), cfg.ln_eps,
                   0 if i in cfg.global_blocks else cfg.window_size, self.grid)
             for i in range(cfg.depth))
-        self._pos_cache: Tuple[tuple, torch.Tensor] | None = None
 
     def abs_pos(self) -> torch.Tensor:
-        """(1, G, G, C) absolute positions: the table without its cls row,
-        bicubically interpolated to the token grid in f32, once per weight
-        version."""
-        pe = self.pos_embed
-        key = (pe._version, pe.data_ptr(), pe.device, self.grid)
-        if self._pos_cache is None or self._pos_cache[0] != key:
-            with torch.no_grad():
-                n = int(round((pe.shape[1] - 1) ** 0.5))
-                t = pe[:, 1:].float().reshape(1, n, n, -1).permute(0, 3, 1, 2)
-                t = F.interpolate(t, size=(self.grid, self.grid), mode="bicubic",
-                                  align_corners=False)
-                self._pos_cache = (key, t.permute(0, 2, 3, 1).contiguous())
-        return self._pos_cache[1]
+        """(1, G, G, C) absolute positions in the compute dtype: the table
+        without its cls row, bicubically interpolated to the token grid in
+        f32, then rounded; once per weight version (``cache.derived``)."""
+        pe, g = self.pos_embed, self.grid
+
+        def make():
+            n = int(round((pe.shape[1] - 1) ** 0.5))
+            t = pe[:, 1:].float().reshape(1, n, n, -1).permute(0, 3, 1, 2)
+            t = F.interpolate(t, size=(g, g), mode="bicubic", align_corners=False)
+            return t.permute(0, 2, 3, 1).contiguous().to(self.dtype)
+
+        return derived((pe,), ("abs_pos", g, self.dtype), make)
+
+    def patch_matrix(self) -> torch.Tensor:
+        """The patch embedding's (C, 3 P P) weight matrix in the compute
+        dtype, once per weight version (``cache.derived``)."""
+        w = self.patch_embed.weight
+        return derived((w,), ("patch_matrix", self.dtype),
+                       lambda: w.reshape(w.shape[0], -1).to(self.dtype))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         b, s, _, _ = images.shape
-        p, g, c = self.cfg.patch_size, self.grid, self.cfg.embed_dim
+        p, g = self.cfg.patch_size, self.grid
         x = images.to(self.dtype)
         # the stride-P conv as one product over flattened (channel, row, col) patches
         x = x.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 5, 2, 4).reshape(b, g, g, 3 * p * p)
-        w = self.patch_embed.weight.reshape(c, 3 * p * p)
-        x = F.linear(x, w.to(self.dtype), self.patch_embed.bias.to(self.dtype))
-        x = x + self.abs_pos().to(self.dtype)
+        x = F.linear(x, self.patch_matrix(), compute_copy(self.patch_embed.bias, self.dtype))
+        x = x + self.abs_pos()
         for blk in self.blocks:
             x = blk(x)
         return x
@@ -236,17 +244,19 @@ class ConvNorm(nn.Module):
         self.norm = ChannelNorm(c_out, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(F.conv2d(x, self.conv.weight.to(x.dtype), None, 1, self.conv.padding))
+        return self.norm(F.conv2d(x, compute_copy(self.conv.weight, x.dtype), None, 1,
+                                  self.conv.padding))
 
 
 class Up(nn.ConvTranspose2d):
-    """A 2x2 transposed conv at stride 2, weights cast to the input's dtype."""
+    """A 2x2 transposed conv at stride 2, weights read in the input's dtype."""
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__(c_in, c_out, 2, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2)
+        return F.conv_transpose2d(x, compute_copy(self.weight, x.dtype),
+                                  compute_copy(self.bias, x.dtype), stride=2)
 
 
 class SimpleFeaturePyramid(nn.Module):

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .backbones.mobilenet_v2 import relu6
+from .cache import derived
 from .config import HyperParams
 from .kernels.ir_stage import fused_ir_stage, stage_weights_cached
 from .kernels.prefix import prefix_blocks, prefix_weights_cached
@@ -41,7 +42,7 @@ _FUSED_BLOCKS = ("block_7", "block_8", "block_9", "block_10", "block_11",
 
 def _check_folded(model: RPN, what: str) -> None:
     if not (model.hp.backbone == "mobilenet_v2" and model.fold_bn):
-        raise ValueError(f"{what} needs the folded-BN mobilenet_v2 model")
+        raise ValueError(f"{what} requires the folded-BN mobilenet_v2 model")
 
 
 def _fused_stage_from(
@@ -169,6 +170,19 @@ def fold_conv1_s2d(weight: torch.Tensor, bias: torch.Tensor
     return w4, bias
 
 
+def s2d_conv1(model: RPN) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded Conv1 (``fold_conv1_s2d``) in the compute dtype, its
+    weight channels-last: once per version of Conv1's weight and bias
+    (``cache.derived``)."""
+    conv1, dtype = model.backbone.Conv1, model.dtype
+
+    def make():
+        w4, b1 = fold_conv1_s2d(conv1.weight, conv1.bias)
+        return w4.to(dtype).contiguous(memory_format=torch.channels_last), b1.to(dtype)
+
+    return derived((conv1.weight, conv1.bias), ("s2d_conv1", dtype), make)
+
+
 def s2d_uint8_stem(model: RPN, raw: torch.Tensor) -> torch.Tensor:
     """Raw uint8 frames (B, H, W, 3) -> Conv1 activations
     (B, img/2, img/2, 32) NHWC: ``data.preprocess_batch`` (uint8 -> [0,1]
@@ -178,14 +192,11 @@ def s2d_uint8_stem(model: RPN, raw: torch.Tensor) -> torch.Tensor:
     ``img_size``."""
     with span("rpn.stem"):
         dtype = model.dtype
-        conv1 = model.backbone.Conv1
-        w4, b1 = fold_conv1_s2d(conv1.weight, conv1.bias)
+        w4, b1 = s2d_conv1(model)
         x = raw.to(dtype) / torch.full((), 255.0, dtype=dtype, device=raw.device)
         x12 = s2d_resize(x, model.hp.img_size).permute(0, 3, 1, 2)  # channels-last NCHW
         x12 = F.pad(x12, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(x12, w4.to(dtype).contiguous(memory_format=torch.channels_last),
-                     b1.to(dtype))
-        return relu6(y).permute(0, 2, 3, 1)
+        return relu6(F.conv2d(x12, w4, b1)).permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

@@ -29,9 +29,11 @@ the tiling, bit for bit.
 
 The kernel copies its weights chunk by chunk as images of its shared
 memory (``kernel_pack``: K-major bf16, 64-byte swizzle, zero-padded to the
-kernel's widths), made once per set of weight tensors
+kernel's widths), made once per version of the weight tensors
 (``kernel_pack_cached``); ``stage_weights_cached`` keeps
-``pack_stage_weights``' output until a conv's weight or bias changes.
+``pack_stage_weights``' output until a conv's weight or bias changes. Both
+follow the package's one rule for what is derived from parameters
+(``tpurpn_torch.cache``).
 
 Numerics, as ``tpurpn``'s kernel: bf16 1x1-conv operands with f32
 accumulation, bias and ReLU6 in f32, the depthwise in f32 over the f32
@@ -52,6 +54,7 @@ import torch.nn.functional as F
 
 from . import _build
 from ..boxes import _round_up
+from ..cache import cached
 
 # Static description of one fused block:
 #   (c_in, c_exp, c_out, residual)  — a full inverted residual, or
@@ -308,7 +311,7 @@ def _sw64_index(rows: int, k: int) -> torch.Tensor:
             + c % 8).reshape(-1)
 
 
-def _swizzle(m: torch.Tensor) -> torch.Tensor:
+def swizzle64(m: torch.Tensor) -> torch.Tensor:
     """(n, rows, k) -> (n, rows * k): each matrix in the layout of ``_sw64_index``."""
     n, rows, k = m.shape
     out = torch.empty((n, rows * k), dtype=m.dtype, device=m.device)
@@ -333,71 +336,33 @@ def kernel_pack(
         w = TAIL_NC if c_out is None else CH
         n = n_exp // w
         we = F.pad(weights[wi].t(), (0, k_in - c_in, 0, n_exp - c_exp))  # (n_exp, k_in)
-        parts = [_swizzle(we.reshape(n, w, k_in))]
+        parts = [swizzle64(we.reshape(n, w, k_in))]
         if c_out is not None:
             wp = F.pad(weights[wi + 4], (0, 0, 0, n_exp - c_exp))  # (n_exp, c_out)
-            parts.append(_swizzle(wp.reshape(n, w, c_out).transpose(1, 2)))
+            parts.append(swizzle64(wp.reshape(n, w, c_out).transpose(1, 2)))
         wi += 2 if c_out is None else 6
         packs.append(torch.cat(parts, 1).reshape(-1))
     return tuple(packs)
 
 
-class _VersionCache:
-    """Results keyed on the identity, ``_version`` and storage address of
-    their source tensors: an in-place update of a source (``copy_``, an
-    optimizer step) bumps its version, and a new storage (``p.data = t``)
-    moves its address, so neither serves a stale result. A write into a
-    source's ``.data`` in place (``p.data.copy_(t)``) bumps neither and is
-    not seen. Inference tensors keep no version, so results of them are
-    computed afresh on every call; results of other tensors are computed
-    outside inference mode, so that they can key this cache in turn. Holds
-    the sources, so an id is never reused while its entry lives; keeps the
-    newest SIZE."""
-
-    SIZE = 4
-
-    def __init__(self):
-        self.entries: list = []  # (sources, key, value), newest last
-
-    def get(self, sources: Sequence[torch.Tensor], make):
-        if any(t.is_inference() for t in sources):
-            return make()
-        key = tuple((t._version, t.data_ptr()) for t in sources)
-        for i, (src, k, value) in enumerate(self.entries):
-            if k == key and len(src) == len(sources) and all(
-                    a is b for a, b in zip(src, sources)):
-                self.entries.append(self.entries.pop(i))
-                return value
-        with torch.inference_mode(False):
-            value = make()
-        self.entries = (self.entries + [(tuple(sources), key, value)])[-self.SIZE:]
-        return value
-
-
-_packs = _VersionCache()
-
-
 def kernel_pack_cached(weights, blocks) -> Tuple[torch.Tensor, ...]:
-    """:func:`kernel_pack`, computed once per set of weight tensors and
-    their versions (see ``_VersionCache`` for what it sees)."""
-    return _packs.get(weights, lambda: kernel_pack(weights, blocks))
-
-
-_stages = _VersionCache()
+    """:func:`kernel_pack`, computed once per version of the weight tensors
+    (``cache.cached``: identity, ``_version`` and storage address)."""
+    return cached(weights, ("kernel_pack", blocks), lambda: kernel_pack(weights, blocks))
 
 
 def stage_weights_cached(
     bb, block_names: Sequence[str], tail_expand: str | None = None
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[BlockSpec, ...]]:
     """:func:`pack_stage_weights`, recomputed only when one of the convs'
-    weights or biases is replaced or updated in place (identity, ``_version``,
-    storage; see ``_VersionCache`` for what it does not see)."""
+    weights or biases is replaced or updated (``cache.cached``)."""
     names = [f"{n}.{n}_{part}" for n in block_names
              for part in ("expand", "depthwise", "project")]
     convs = [bb.get_submodule(n) for n in names]
     convs += [_tail_conv(bb, tail_expand)] if tail_expand is not None else []
     sources = [t for m in convs for t in (m.weight, m.bias)]
-    return _stages.get(sources, lambda: pack_stage_weights(bb, block_names, tail_expand))
+    return cached(sources, ("stage_weights", tuple(block_names), tail_expand),
+                  lambda: pack_stage_weights(bb, block_names, tail_expand))
 
 
 def _launch(x: torch.Tensor, weights, blocks, dw_input_bf16: bool) -> torch.Tensor:

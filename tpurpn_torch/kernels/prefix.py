@@ -17,7 +17,8 @@ operations around each convolution on the serving path
 (``inference._fused_stage_from``). The module's ``forward``, which training
 and the unfolded model run, is untouched.
 
-Weights are packed once (``prefix_weights_cached``): each 1x1 conv as bf16
+Weights are packed once a parameter version (``prefix_weights_cached``,
+by ``tpurpn_torch.cache``'s rule): each 1x1 conv as bf16
 (c_in, c_out) with its f32 bias and the kernel's shared-memory image of it
 (``pointwise_pack``: K-major bf16 in 64-byte-swizzled planes of 32 input
 channels, zero-padded to whole planes), each depthwise conv as its bf16
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 
 from . import _build
 from ..boxes import _round_up
-from .ir_stage import _swizzle, _VersionCache
+from ..cache import cached
+from .ir_stage import swizzle64
 
 # (c_in, c_out, relu6, residual) of the prefix's 1x1 convs: expanded_conv's
 # project, then each block's expand and project
@@ -83,10 +85,10 @@ class Depthwise(NamedTuple):
 def pointwise_pack(w: torch.Tensor) -> torch.Tensor:
     """(c_in, c_out) bf16 -> the kernel's shared-memory image, flat:
     round_up(c_in, 32) / 32 planes of (c_out, 32) K-major bf16, 64-byte
-    swizzled (``ir_stage._sw64_index``), the pad input channels zero."""
+    swizzled (``ir_stage.swizzle64``), the pad input channels zero."""
     c_in, c_out = w.shape
     m = F.pad(w.t(), (0, _round_up(c_in, 32) - c_in))  # (c_out, k_in)
-    return _swizzle(m[None])[0]
+    return swizzle64(m[None])[0]
 
 
 def pack_pointwise(conv, relu6: bool, residual: bool) -> Pointwise:
@@ -122,16 +124,12 @@ def pack_prefix(bb, block_names: Sequence[str]) -> Tuple[PrefixBlock, ...]:
     return tuple(blocks)
 
 
-_prefixes = _VersionCache()
-
-
 def prefix_weights_cached(bb, block_names: Sequence[str]) -> Tuple[PrefixBlock, ...]:
     """:func:`pack_prefix`, recomputed only when one of the convs' weights
-    or biases is replaced or updated in place (identity, ``_version``,
-    storage; see ``ir_stage._VersionCache`` for what it does not see)."""
+    or biases is replaced or updated (``cache.cached``)."""
     convs = [m for n in block_names for m in bb.get_submodule(n).children()]
     sources = [t for m in convs for t in (m.weight, m.bias)]
-    return _prefixes.get(sources, lambda: pack_prefix(bb, block_names))
+    return cached(sources, ("prefix", tuple(block_names)), lambda: pack_prefix(bb, block_names))
 
 
 def _bf16_nhwc(x: torch.Tensor, c: int, what: str) -> None:

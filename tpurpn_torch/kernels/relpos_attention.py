@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..cache import compute_copy
 
 D = 64  # the kernel's head width
 _LOG2E = 1.4426950408889634
@@ -61,8 +62,8 @@ def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s - 1], scores q k^T / sqrt(d) + bias, softmax, times v; the result in
     q's dtype. Works through the images in chunks of at most 2^26 scores."""
     n, h, t, d = q.shape
-    rh = rel_pos_h.to(q.dtype).float()
-    rw = rel_pos_w.to(q.dtype).float()
+    rh = compute_copy(rel_pos_h, q.dtype).float()
+    rw = compute_copy(rel_pos_w, q.dtype).float()
     ih, iw = _rel_index(side, q.device)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     step = max(1, (1 << 26) // (h * t * t))

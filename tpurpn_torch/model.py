@@ -7,7 +7,10 @@ relu)`` ("rpn_conv"), and two 1x1 branches — ``rpn_cls`` (anchor_count
 objectness logits) and ``rpn_reg`` (4*anchor_count deltas). Output order
 matches the reference: ``(rpn_reg, rpn_cls)``, NHWC, float32.
 
-Compute is bf16 with f32 parameters; the head outputs are cast to f32. The
+Compute is bf16 with f32 parameters, which every layer reads through their
+compute copies (``cache.compute_copy``: a cast at each use while autograd
+records, else one copy per parameter version, so that serving casts no
+weight after its first call); the head outputs are cast to f32. The
 backbone is MobileNetV2 or VGG16, as ``hp.backbone`` says. ``model.train()``
 is ``tpurpn``'s ``apply(..., train=True)``: it puts the BatchNorms in
 batch-statistics mode (``backbones.mobilenet_v2.BatchNorm``).
@@ -31,6 +34,7 @@ from torch import nn
 from .backbones import MobileNetV2Backbone, VGG16Backbone
 from .backbones import vit
 from .backbones.mobilenet_v2 import BatchNorm, Conv
+from .cache import compute_copy
 from .config import HyperParams
 from .profiling import span
 
@@ -104,9 +108,11 @@ class PyramidRPN(nn.Module):
     def _head(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         d = self.dtype
         for conv in self.head_convs:
-            x = torch.relu(F.conv2d(x, conv.weight.to(d), conv.bias.to(d), padding=1))
-        logits = F.conv2d(x, self.objectness.weight.to(d), self.objectness.bias.to(d))
-        deltas = F.conv2d(x, self.deltas.weight.to(d), self.deltas.bias.to(d))
+            x = torch.relu(F.conv2d(x, compute_copy(conv.weight, d), compute_copy(conv.bias, d),
+                                    padding=1))
+        logits = F.conv2d(x, compute_copy(self.objectness.weight, d),
+                          compute_copy(self.objectness.bias, d))
+        deltas = F.conv2d(x, compute_copy(self.deltas.weight, d), compute_copy(self.deltas.bias, d))
         b = x.shape[0]
         return (deltas.permute(0, 2, 3, 1).reshape(b, -1, 4),
                 logits.permute(0, 2, 3, 1).reshape(b, -1))

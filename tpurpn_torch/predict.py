@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from . import inference
 from .anchors import generate_anchors, level_sizes
 from .boxes import apply_deltas, get_bboxes_from_deltas
 from .config import HyperParams
@@ -182,8 +183,8 @@ def make_predict_fn(
     out_topn = hp.test_nms_topn if topn is None else topn
     pre = min(hp.pre_nms_topn, hp.total_anchors)
     dtype = getattr(torch, hp.compute_dtype)
-    if fast and not (hp.backbone == "mobilenet_v2" and model.fold_bn):
-        raise ValueError("fast=True requires the folded-BN mobilenet_v2 model")
+    if fast:
+        inference._check_folded(model, "fast=True")
     if hp.multi_level:
         mean = torch.tensor(hp.pixel_mean, dtype=torch.float32, device=device)
         std = torch.tensor(hp.pixel_std, dtype=torch.float32, device=device)
@@ -198,8 +199,6 @@ def make_predict_fn(
                 raise TypeError(
                     f"from_uint8=True expects raw uint8 frames; got {images.dtype}"
                 )
-            from . import inference
-
             if fast and inference.s2d_stem_supported(hp, images.shape):
                 return inference.fast_uint8_forward(model, images)
             from .data import preprocess_batch
@@ -210,9 +209,7 @@ def make_predict_fn(
                     hp.img_size, dtype=dtype,
                 )
         if fast:
-            from .inference import fast_mobilenet_forward
-
-            return fast_mobilenet_forward(model, images)
+            return inference.fast_mobilenet_forward(model, images)
         return model(images)
 
     def level_proposals(images: torch.Tensor):

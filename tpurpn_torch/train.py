@@ -36,6 +36,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd.graph import increment_version
 
 from .anchors import generate_anchors
 from .config import HyperParams
@@ -187,12 +188,12 @@ def replicate(mesh, state: TrainState) -> TrainState:
     parameters, buffers (BatchNorm statistics), optimizer state and step.
     Raises on every rank if the ranks' states differ in structure."""
     dev = _mesh_device(mesh)
-    model, opt = state.model.to(dev), state.optimizer
-    for st in opt.state.values():
+    state.model.to(dev)
+    for st in state.optimizer.state.values():
         for k, v in st.items():
             if torch.is_tensor(v):
                 st[k] = v.to(dev)
-    tensors = [*model.parameters(), *model.buffers(), *_optimizer_tensors(opt)]
+    tensors = _state_tensors(state)
     group, src = mesh.get_group(), int(mesh.mesh.reshape(-1)[0])
     meta = torch.tensor([len(tensors), -len(tensors), state.step], device=dev)
     sizes = meta[:2].clone()
@@ -204,7 +205,21 @@ def replicate(mesh, state: TrainState) -> TrainState:
     state.step = int(meta[2])
     for t in tensors:
         dist.broadcast(t, src, group=group)
+    _written(tensors)  # a collective writes without autograd's knowledge
     return state
+
+
+def _written(tensors) -> None:
+    """Bump the versions of tensors written behind autograd's back (a
+    collective, a CUDA graph's replay), so that what was derived from them
+    (``tpurpn_torch.cache``) is made again."""
+    for t in tensors:
+        increment_version(t)
+
+
+def _state_tensors(state: TrainState):
+    return [*state.model.parameters(), *state.model.buffers(),
+            *_optimizer_tensors(state.optimizer)]
 
 
 def _optimizer_tensors(opt: torch.optim.Optimizer):
@@ -400,7 +415,9 @@ class _StepGraph:
     warms up cuDNN and the kernels, following torch's whole-network capture
     (the step's ``zero_grad(set_to_none=True)`` inside the captured region),
     and captured again when a tensor of the state or of the dataset moves.
-    A failing capture raises. ``captures`` and ``replays`` count both."""
+    A failing capture raises. ``captures`` and ``replays`` count both. A
+    replay updates the state without autograd's knowledge, so ``run`` bumps
+    the versions of the state's tensors after its replays."""
 
     def __init__(self, step: _Step):
         self.step = step
@@ -409,8 +426,7 @@ class _StepGraph:
 
     @staticmethod
     def _key(state: TrainState, data):
-        tensors = (*data, *state.model.parameters(), *state.model.buffers(),
-                   *_optimizer_tensors(state.optimizer))
+        tensors = (*data, *_state_tensors(state))
         return (id(state.model), id(state.optimizer)) + tuple(t.data_ptr() for t in tensors)
 
     def _update(self, state, data):
@@ -442,6 +458,7 @@ class _StepGraph:
             self.replays += 1
             out.append(self.out.clone())
             state.step += 1
+        _written(_state_tensors(state))
         return out
 
 
