@@ -35,12 +35,16 @@ them:
    launches against its plain version (the depthwise bit for bit, the 1x1
    within one bf16 ulp) and the module's ops for the same conv, timed
    beside its byte bound, its plain version and those ops; the walk
-   against the module's forward; a traced fast serving call with 13 + 7
-   launches and nothing else inside ``rpn.prefix``;
+   against the module's forward; 13 + 7 host launches in a fast serving
+   call's capture and none in a replay, and in a traced replay the
+   kernels the card ran inside ``rpn.replay`` (13 + 7 prefix, 6 + 1 IR
+   stage, 1 proposal); a traced eager call with 13 + 7 launches and
+   nothing else inside ``rpn.prefix``;
 3. runs ``make_predict_fn(fast=True)`` on B bf16 images and
    ``make_predict_fn(fast=True, from_uint8=True)`` on B uint8 375x500
    frames, with every kernel's launch count set to 0 just before each run and
-   read just after; checks shapes, finiteness, ``0 <= num_valid <= 300`` and
+   read just after (a fresh predict fn's first call: eager; step 2 counts a
+   replay's kernels); checks shapes, finiteness, ``0 <= num_valid <= 300`` and
    that both kernels launched; holds the fast forward against the plain
    folded forward at the bf16 tolerance;
    then (``serving_640``) the same two entry points at 640x640 (a 40x40 tap,
@@ -590,6 +594,47 @@ def target_executions(launches, graphs):
     less the one each capture recorded, plus one a replay (the counter does
     not see replays)."""
     return launches - sum(g.captures for g in graphs) + sum(g.replays for g in graphs)
+
+
+# the kernels a replayed fast serving call runs on the card, by name
+REPLAYED = {"prefix_pointwise_kernel": 13, "prefix_depthwise_kernel": 7, "ir_block_kernel": 6,
+            "ir_expand_kernel": 1, "proposal_kernel": 1}
+
+
+def replay_kernels(torch, fn, x, tries: int = 3):
+    """Kernels of ``REPLAYED`` that the card ran inside ``rpn.replay``'s
+    device range in a traced call ``fn(x)`` (after a traced warm-up call,
+    whose first launches the profiler can miss); traced again, up to
+    ``tries`` times, while they differ from ``REPLAYED`` (the profiler can
+    drop a launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from tpurpn_torch import profiling
+
+    for _ in range(tries):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traces.append(list(p.events()))) as prof, \
+                profiling._on(annotate=True):
+            for _ in range(2):
+                fn(x)
+                torch.cuda.synchronize()
+                prof.step()
+        events = traces[-1] if traces else []
+        ranges = [e.time_range for e in events
+                  if e.name == "rpn.replay" and e.device_type == DeviceType.CUDA]
+        found = dict.fromkeys(REPLAYED, 0)
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and not e.is_user_annotation and len(ranges) == 1
+                    and ranges[0].start <= e.time_range.start <= e.time_range.end
+                    <= ranges[0].end):
+                for name in found:
+                    found[name] += name in e.name
+        if found == REPLAYED:
+            break
+    return found
 
 
 def step_gaps(metrics, tensors, ref_metrics, ref_tensors):
@@ -1306,7 +1351,7 @@ def serving_640_phase(torch, args, dev, kernels, smi):
         require(launches["ir_stage"] == 7 and launches["proposals"] == 1,
                 f"640 serving ({variant}) launches {launches}")
         check_proposals(torch, o, B, topn)
-        out[f"main_path_{variant}"] = {"launches": launches,
+        out[f"main_path_{variant}"] = {"call": "eager", "launches": launches,
                                        "num_valid_min": int(o["num_valid"].min()),
                                        "num_valid_mean": float(o["num_valid"].float().mean())}
 
@@ -1457,8 +1502,8 @@ def native_loader_phase(native):
 def predictor_trained_phase(torch, kernels, cli, batch, tmp, img_size=500, variants=(True, False),
                             ref_recall=REF_RECALL_TEST):
     """The predictor CLI on the trained weights over the 256 test frames at
-    ``img_size``, with --fast and without (``variants``): launches, recall
-    against tpurpn's (``ref_recall``), the PNG."""
+    ``img_size``, with --fast and without (``variants``): host launches,
+    recall against tpurpn's (``ref_recall``), the PNG."""
     out = {"phase": "predictor_trained" + ("" if img_size == 500 else f"_{img_size}"),
            "weights": str(TRAINED_NPZ.relative_to(REPO)), "img_size": img_size,
            "frames": "SyntheticVOC test (seed 2), native", "max_boxes": 64, "batch": batch,
@@ -1482,8 +1527,11 @@ def predictor_trained_phase(torch, kernels, cli, batch, tmp, img_size=500, varia
         launches = counts(kernels)
         topn, recall, n_gt = read_recall(text)
         require("ignoring" not in text, f"predictor dropped --fast: {text[-300:]!r}")
-        require(launches["ir_stage"] == (7 * batches if fast else 0)
-                and launches["proposals"] == batches and launches["targets"] == 0,
+        # host launches: with --fast an eager call and the capture, then
+        # replays, which launch nothing from the host
+        calls = min(batches, 2) if fast else batches
+        require(launches["ir_stage"] == (7 * calls if fast else 0)
+                and launches["proposals"] == calls and launches["targets"] == 0,
                 f"predictor ({name}, {img_size}) launches {launches}")
         require(topn == 300 and n_gt == REF_GT_TEST, f"predictor ({name}): {n_gt} GT boxes")
         require(abs(recall - ref_recall) <= RECALL_TOL,
@@ -1558,8 +1606,11 @@ def prefix_phase(torch, folded, frames, dev):
     events beside its bound (its input, residual and output bytes over
     PEAK_BYTES), its plain version and the yardstick. Then the whole walk
     against ``bb(x, stop_after_block=6, skip_stem=True)``, both timed and
-    profiled; and a traced fast serving call: 13 prefix_pointwise and 7
-    prefix_depthwise launches, no host op inside ``rpn.prefix`` that
+    profiled; 13 prefix_pointwise and 7 prefix_depthwise host launches in a
+    fast serving call's capture and none in a replay (the counters count
+    host launches), and the kernels that a traced replay ran inside
+    ``rpn.replay`` on the card (``REPLAYED``); and a traced first (eager)
+    call of a fresh predict fn: no host op inside ``rpn.prefix`` that
     convolves, adds, clamps, fills, pads or copies, and the device
     operations inside it (kineto's device range of the span) those 20
     kernels alone; the serving call's ms with the prefix on the kernels and
@@ -1647,19 +1698,28 @@ def prefix_phase(torch, folded, frames, dev):
     predict(frames)
     torch.cuda.synchronize()
     counters = {"prefix_pointwise": pk.prefix_pointwise, "prefix_depthwise": pk.prefix_depthwise}
-    reset(counters)
-    predict(frames)
-    torch.cuda.synchronize()
-    launches = counts(counters)
-    require(launches == {"prefix_pointwise": 13, "prefix_depthwise": 7},
-            f"a fast serving call launched {launches}")
-    out["launches"] = launches
-    for _ in range(2):
+    for call, want in (("capture", {"prefix_pointwise": 13, "prefix_depthwise": 7}),
+                       ("replay", {"prefix_pointwise": 0, "prefix_depthwise": 0})):
+        reset(counters)
         predict(frames)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        launches = counts(counters)
+        require(launches == want, f"a fast serving call ({call}) launched {launches} "
+                                  "from the host")
+        out[f"host_launches_{call}"] = launches
+    out["graph"] = {"eager_calls": predict.eager_calls, "captures": predict.captures,
+                    "replays": predict.replays}
+    require(out["graph"] == {"eager_calls": 1, "captures": 1, "replays": 1},
+            f"three fast serving calls: {out['graph']}")
+    out["replay_kernels"] = replay_kernels(torch, predict, frames)
+    require(out["replay_kernels"] == REPLAYED,
+            f"kernels inside rpn.replay in a traced replay: {out['replay_kernels']}")
+    # a fresh predict fn's first call runs eager, its spans around its
+    # launches (a replay opens rpn.upload and rpn.replay alone)
+    traced = make_predict_fn(folded, folded.hp, fast=True, from_uint8=True, device=dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
             profiling._on(annotate=True):
-        predict(frames)
+        traced(frames)
         torch.cuda.synchronize()
     events = list(prof.events())
     host = [e for e in events if e.name == "rpn.prefix" and e.device_type == DeviceType.CPU]
@@ -1689,8 +1749,9 @@ def prefix_phase(torch, folded, frames, dev):
     out["serving_ms"] = time_ms(torch, lambda: predict(frames), 5)
     real = pk.prefix_blocks
     inference.prefix_blocks = lambda x, blocks: bb(x, stop_after_block=6, skip_stem=True)
-    try:
-        out["serving_ms_module_prefix"] = time_ms(torch, lambda: predict(frames), 5)
+    try:  # a fresh predict fn, whose graph holds the module's prefix
+        module = make_predict_fn(folded, folded.hp, fast=True, from_uint8=True, device=dev)
+        out["serving_ms_module_prefix"] = time_ms(torch, lambda: module(frames), 5)
     finally:
         inference.prefix_blocks = real
     return out
@@ -2273,7 +2334,7 @@ def main() -> int:
                 and launches[variant]["prefix_depthwise"] == 7,
                 f"{variant} main path's prefix launches: {launches[variant]}")
         check_proposals(torch, out, B, topn)
-        emit({"phase": f"main_path_{variant}", "launches": launches[variant],
+        emit({"phase": f"main_path_{variant}", "call": "eager", "launches": launches[variant],
               "num_valid_min": int(out["num_valid"].min()),
               "num_valid_mean": float(out["num_valid"].float().mean())})
 

@@ -34,6 +34,7 @@ at each use, so that training's gradients reach the f32 parameters.
 
 from __future__ import annotations
 
+import operator
 from typing import Callable, Hashable, Sequence, TypeVar
 
 import torch
@@ -43,6 +44,8 @@ T = TypeVar("T")
 
 # first source -> {tag: (the other sources, their stamps, value)}
 _entries = WeakIdKeyDictionary()
+_generation = 0  # the number of clear() calls
+_VERSION = operator.attrgetter("_version")
 
 
 def _stamp(sources: Sequence[torch.Tensor]) -> tuple:
@@ -102,4 +105,27 @@ def compute_copy(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def clear() -> None:
     """Forget every entry (the next use makes each result afresh)."""
+    global _generation
     _entries.clear()
+    _generation += 1
+
+
+def graph_key(tensors: Sequence[torch.Tensor], versions: bool = True):
+    """When a CUDA graph that reads ``tensors`` at each replay, or what was
+    derived from them, must be captured again: once this key differs. It is
+    the module's rule, each tensor's identity and storage address, and with
+    ``versions`` each ``_version`` and the number of :func:`clear` calls, so
+    a graph never replays a derived tensor that :func:`cached` would make
+    again. The caller holds ``tensors``, so that no id is reused. A graph
+    whose own replays write ``tensors`` (a train step, which then bumps
+    their versions) keys without ``versions``. None where a tensor is an
+    inference tensor: it keeps no version, and nothing derived from it is
+    kept."""
+    ids = tuple(map(id, tensors))
+    ptrs = tuple(map(torch.Tensor.data_ptr, tensors))
+    if not versions:
+        return ids, ptrs
+    try:
+        return ids, ptrs, tuple(map(_VERSION, tensors)), _generation
+    except RuntimeError:  # an inference tensor keeps no version
+        return None

@@ -89,7 +89,7 @@ def s2d_stem_supported(hp: HyperParams, raw_shape) -> bool:
             and raw_shape[2] <= hp.img_size)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _subgrid_weights(n_in: int, out_size: int, dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
     """(out_size, n_in) bilinear weights of the two sub-grids of one axis
@@ -98,7 +98,9 @@ def _subgrid_weights(n_in: int, out_size: int, dtype: torch.dtype,
     builds them for scale out / (2 n_in) and translation (0.5 - p) / 2: the
     sample coordinates, the 2-tap triangle weights, their normalization and
     the edge mask in f32, then cast to ``dtype``. Cached: a host-to-device
-    copy in every serving call would wait for the card."""
+    copy in every serving call would wait for the card. Never evicted, since
+    a serving CUDA graph reads the tensor at each replay: at most
+    ``out_size`` entries an (out_size, dtype, device), one a frame side."""
     inv_scale = 1.0 / torch.tensor(out_size / (2.0 * n_in), dtype=torch.float32)
     half = out_size // 2
     u = torch.arange(half, dtype=torch.float32)

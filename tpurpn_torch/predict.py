@@ -23,19 +23,30 @@ kept by logit; ``roi_scores`` are their sigmoids.
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from . import inference
+from . import cache, inference
 from .anchors import generate_anchors, level_sizes
 from .boxes import apply_deltas, get_bboxes_from_deltas
 from .config import HyperParams
 from .kernels.proposal import fused_proposals, fused_proposals_plain, top_candidates
 from .model import RPN, default_device
 from .profiling import span
+
+
+@functools.lru_cache(maxsize=None)
+def _variances(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an f32 tensor on ``device``, made once, outside
+    inference mode: a host-to-device copy in every call would wait for the
+    card, and a CUDA graph cannot capture one."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def decode_outputs(
@@ -47,8 +58,7 @@ def decode_outputs(
     """Head outputs -> (boxes (B, N, 4), scores (B, N)): deltas times the
     variances, decoded against the anchors; sigmoid objectness."""
     B = rpn_reg.shape[0]
-    variances = torch.tensor(hp.variances, dtype=torch.float32, device=rpn_reg.device)
-    deltas = rpn_reg.reshape(B, -1, 4) * variances
+    deltas = rpn_reg.reshape(B, -1, 4) * _variances(hp.variances, rpn_reg.device)
     scores = torch.sigmoid(rpn_cls_logits.reshape(B, -1))
     boxes = get_bboxes_from_deltas(anchors[None], deltas)
     return boxes, scores
@@ -138,6 +148,84 @@ def select_levels(boxes: torch.Tensor, logits: torch.Tensor, hp: HyperParams,
 select_levels.candidates = 0
 
 
+class _ServeGraph:
+    """The fast serving call on the card, captured in a CUDA graph once its
+    input's shape repeats, then replayed.
+
+    The key is the input's shape, dtype and device and ``cache.graph_key``
+    of every parameter and buffer of the model (identity, storage, version;
+    ``cache.clear``). They are held between calls, so that no id in the
+    key is reused, with every module's ``_modules``, ``_parameters`` and
+    ``_buffers``: a call reads what those dicts hold and walks the model
+    again where that differs (an assignment, a new submodule,
+    ``Module._apply``'s writes into them). Reading the dicts costs a third
+    of a walk. The first call with a key runs eager: it makes the derived
+    weights, loads the kernels and lets cuDNN choose, as
+    ``train._StepGraph``'s eager step does. The second consecutive call
+    with it uploads into a static input, captures and replays; later ones
+    upload and replay. A new key drops the graph and runs eager, so a
+    caller whose shapes vary never captures what it cannot reuse; a model
+    with inference tensors (no version, their derived weights made at each
+    call) runs eager at every call. A failing capture raises. Results are
+    clones of the graph's outputs, so they outlive the next call.
+
+    ``counts`` (the predict fn) counts ``eager_calls``, ``captures`` and
+    ``replays``. The kernel wrappers' ``launches`` count launches on the
+    host, as under ``_StepGraph``: the capture's, and none at a replay."""
+
+    def __init__(self, model: RPN, device: torch.device, body, counts):
+        self.model, self.device, self.body, self.counts = model, device, body, counts
+        self.key = self.graph = self.held = None
+        self.dicts = []
+
+    def _tensors(self):
+        held = [v for d in self.dicts for v in d.values()]
+        if (self.held is None or len(held) != len(self.held)
+                or not all(map(operator.is_, held, self.held))):
+            modules = list(self.model.modules())
+            self.dicts = [d for m in modules for d in (m._modules, m._parameters, m._buffers)]
+            self.held = [v for d in self.dicts for v in d.values()]
+            self.tensors = [t for m in modules
+                            for t in (*m._parameters.values(), *m._buffers.values())
+                            if t is not None]
+        return self.tensors
+
+    def _key(self, images: torch.Tensor):
+        weights = cache.graph_key(self._tensors())
+        return None if weights is None else (images.shape, images.dtype, images.device, weights)
+
+    def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        key = self._key(images)
+        if key is None or key != self.key:
+            self.key = self.graph = self.static = self.out = None
+            self.counts.eager_calls += 1
+            with span("rpn.upload"):
+                images = images.to(self.device)
+            out = self.body(images)
+            self.key = key
+            return out
+        if self.graph is None:
+            self._capture(images)
+        else:
+            with span("rpn.upload"):
+                self.static.copy_(images)
+            self.counts.replays += 1
+        with span("rpn.replay"):
+            self.graph.replay()
+            return {k: v.clone() for k, v in self.out.items()}
+
+    def _capture(self, images: torch.Tensor) -> None:
+        with torch.inference_mode(False), torch.no_grad():
+            self.static = torch.empty(images.shape, dtype=images.dtype, device=self.device)
+            with span("rpn.upload"):
+                self.static.copy_(images)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.out = self.body(self.static)
+        self.graph = graph
+        self.counts.captures += 1
+
+
 def make_predict_fn(
     model: RPN,
     hp: HyperParams,
@@ -157,6 +245,11 @@ def make_predict_fn(
     ``fast=True`` (folded-BN mobilenet_v2 only) swaps the backbone
     mid-stage for the fused inverted-residual kernel (``tpurpn_torch.
     inference``); outputs agree with the plain forward at bf16 tolerance.
+    On the card, without a mesh, such a call is replayed as one CUDA graph
+    from the second call on with the same input shape and weights
+    (``_ServeGraph``): the same kernels on the same inputs, the same bits.
+    ``predict_fn.eager_calls``, ``.captures`` and ``.replays`` count the
+    calls of each kind; every other predict fn runs eager.
 
     ``from_uint8=True`` takes raw uint8 frames: uint8 -> [0,1] in the compute
     dtype and a bilinear resize to ``hp.img_size`` (``data.preprocess_batch``)
@@ -223,19 +316,24 @@ def make_predict_fn(
         with span("rpn.select"):
             return select_levels(boxes, logits, hp, hw, levels, out_topn)
 
+    def proposals(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if hp.multi_level:
+            return level_proposals(images)
+        rpn_reg, rpn_cls = forward(images)
+        with span("rpn.decode"):
+            boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
+        with span("rpn.select"):
+            return fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+
     @torch.no_grad()
     def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
         with span("rpn.predict"):
+            if graph is not None:
+                return graph(images)
+            predict_fn.eager_calls += 1
             with span("rpn.upload"):
                 images = images.to(device)
-            if hp.multi_level:
-                out = level_proposals(images)
-            else:
-                rpn_reg, rpn_cls = forward(images)
-                with span("rpn.decode"):
-                    boxes, scores = decode_outputs(anchors, rpn_reg, rpn_cls, hp)
-                with span("rpn.select"):
-                    out = fused_proposals(boxes, scores, pre, hp.nms_iou_threshold, out_topn)
+            out = proposals(images)
             if mesh is None:
                 return out
             group = mesh.get_group()
@@ -246,4 +344,7 @@ def make_predict_fn(
                 gathered[k] = torch.cat(parts)
             return gathered
 
+    predict_fn.eager_calls = predict_fn.captures = predict_fn.replays = 0
+    graph = (_ServeGraph(model, device, proposals, predict_fn)
+             if fast and mesh is None and device.type == "cuda" else None)
     return predict_fn

@@ -22,7 +22,9 @@ SURVEY.md §5, absent in the reference).
 Spans are host code and nest on the thread that opens them (the caller's:
 kernels that autograd's device thread launches during ``backward()`` fall
 inside the caller's open span by time). Inside a CUDA-graph capture they
-record the capture, not the replays, and add no device work.
+record the capture, not the replays, and add no device work: a replayed
+serving call (``predict._ServeGraph``) opens ``rpn.predict`` with
+``rpn.upload`` and ``rpn.replay`` alone.
 """
 
 from __future__ import annotations

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 from torch.autograd.graph import increment_version
 
+from . import cache
 from .anchors import generate_anchors
 from .config import HyperParams
 from .data import preprocess_batch
@@ -414,7 +415,8 @@ class _StepGraph:
     eager step, which counts as a step, creates SGD's momentum buffers and
     warms up cuDNN and the kernels, following torch's whole-network capture
     (the step's ``zero_grad(set_to_none=True)`` inside the captured region),
-    and captured again when a tensor of the state or of the dataset moves.
+    and captured again when a tensor of the state (``cache.graph_key``,
+    without versions: its replays write them) or of the dataset moves.
     A failing capture raises. ``captures`` and ``replays`` count both. A
     replay updates the state without autograd's knowledge, so ``run`` bumps
     the versions of the state's tensors after its replays."""
@@ -426,8 +428,8 @@ class _StepGraph:
 
     @staticmethod
     def _key(state: TrainState, data):
-        tensors = (*data, *_state_tensors(state))
-        return (id(state.model), id(state.optimizer)) + tuple(t.data_ptr() for t in tensors)
+        return (id(state.model), id(state.optimizer), tuple(t.data_ptr() for t in data),
+                cache.graph_key(_state_tensors(state), versions=False))
 
     def _update(self, state, data):
         batch = [t.index_select(0, self.idx) for t in data]
