@@ -13,8 +13,9 @@ A configuration with a feature pyramid (``hp.multi_level``) takes
 detectron2's ``DefaultAnchorGenerator`` instead (``generate_level_anchors``):
 one size a level, ratios as listed, offset 0 (centres on the cells'
 corners), not clipped, computed in f32 as detectron2 computes them in pixels
-and then divided by the canvas ``img_size`` (exact: a power of two at 1024)
-into the port's [y1, x1, y2, x2].
+and then divided by the canvas's height (y) and width (x) (exact at ViTDet's
+1024 square, a power of two) into the port's [y1, x1, y2, x2]. A canvas that
+follows the frames (``hp.canvas_rule``) is passed in.
 """
 
 from __future__ import annotations
@@ -76,24 +77,29 @@ def generate_anchors(hp: HyperParams, device=None) -> torch.Tensor:
     return torch.tensor(_generate_anchors_np(hp), device=device)
 
 
-def generate_level_anchors(hp: HyperParams, device=None) -> torch.Tensor:
-    """(sum of H_l * W_l * A, 4) f32 anchors of every level, P2 first, each
-    row-major over (y, x, anchor) with the ratios in their listed order."""
+def generate_level_anchors(hp: HyperParams, device=None, canvas=None) -> torch.Tensor:
+    """(sum of H_l * W_l * A, 4) f32 anchors of every level on ``canvas``
+    (H, W) (default: ``hp.canvas``), P2 first, each row-major over (y, x,
+    anchor) with the ratios in their listed order; y divided by H, x by W."""
+    canvas = canvas or hp.canvas
     out = []
-    for size, stride, fm in zip(hp.anchor_scales, hp.level_strides, hp.level_shapes):
+    for size, stride, (fh, fw) in zip(hp.anchor_scales, hp.level_strides,
+                                      hp.level_shapes(canvas)):
         ratios = torch.tensor(hp.anchor_ratios, dtype=torch.float64)
         w = torch.sqrt(size * size / ratios)
         h = ratios * w
         base = torch.stack([-w / 2, -h / 2, w / 2, h / 2], -1).float()  # x0, y0, x1, y1
-        shift = torch.arange(0, fm * stride, step=stride, dtype=torch.float32)
-        sy, sx = torch.meshgrid(shift, shift, indexing="ij")
+        sy, sx = torch.meshgrid(torch.arange(0, fh * stride, step=stride, dtype=torch.float32),
+                                torch.arange(0, fw * stride, step=stride, dtype=torch.float32),
+                                indexing="ij")
         sx, sy = sx.reshape(-1), sy.reshape(-1)
         shifts = torch.stack([sx, sy, sx, sy], -1)
         a = (shifts[:, None, :] + base[None]).reshape(-1, 4)
-        out.append(a[:, [1, 0, 3, 2]] / hp.img_size)
+        out.append(a[:, [1, 0, 3, 2]] / torch.tensor([canvas[0], canvas[1]] * 2,
+                                                     dtype=torch.float32))
     return torch.cat(out).to(device)
 
 
-def level_sizes(hp: HyperParams) -> tuple:
-    """Anchors of each pyramid level, P2 first."""
-    return tuple(s * s * hp.anchor_count for s in hp.level_shapes)
+def level_sizes(hp: HyperParams, canvas=None) -> tuple:
+    """Anchors of each pyramid level on ``canvas`` (default: ``hp.canvas``), P2 first."""
+    return tuple(h * w * hp.anchor_count for h, w in hp.level_shapes(canvas))

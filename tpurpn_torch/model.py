@@ -15,11 +15,12 @@ backbone is MobileNetV2 or VGG16, as ``hp.backbone`` says. ``model.train()``
 is ``tpurpn``'s ``apply(..., train=True)``: it puts the BatchNorms in
 batch-statistics mode (``backbones.mobilenet_v2.BatchNorm``).
 
-``hp.multi_level`` (``vitdet_b``) builds ``PyramidRPN`` instead: the ViT and
-its simple feature pyramid (``backbones.vit``), and detectron2's
-``StandardRPNHead`` shared over the five levels (``head_convs`` 3x3 convs
-with ReLU, then 1x1 convs to A objectness logits and 4A deltas in (dx, dy,
-dw, dh) order).
+``hp.multi_level`` builds ``PyramidRPN`` instead: the backbone and neck that
+``hp`` names (``vitdet_b``: the ViT and its simple feature pyramid,
+``backbones.vit``; ``mvitv2_b``: the multiscale ViT and the top-down FPN,
+``backbones.mvit``), and detectron2's ``StandardRPNHead`` shared over the
+five levels (``head_convs`` 3x3 convs with ReLU, then 1x1 convs to A
+objectness logits and 4A deltas in (dx, dy, dw, dh) order).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .backbones import MobileNetV2Backbone, VGG16Backbone
-from .backbones import vit
+from .backbones import mvit, vit
 from .backbones.mobilenet_v2 import BatchNorm, Conv
 from .cache import compute_copy
 from .config import HyperParams
@@ -86,7 +87,7 @@ class RPN(nn.Module):
 
 
 class PyramidRPN(nn.Module):
-    """NHWC image canvas (B, S, S, 3), normalised and padded -> every level's
+    """NHWC image canvas (B, H, W, 3), normalised and padded -> every level's
     (deltas (B, N, 4) in (dx, dy, dw, dh) order, objectness logits (B, N)),
     f32, the levels concatenated P2 first, each row-major over (y, x,
     anchor)."""
@@ -96,10 +97,16 @@ class PyramidRPN(nn.Module):
         self.hp = hp
         self.fold_bn = False
         self.dtype = getattr(torch, hp.compute_dtype)
-        cfg = hp.vit
-        c = cfg.pyramid_channels
-        self.backbone = vit.ViT(cfg, hp.img_size, self.dtype)
-        self.pyramid = vit.SimpleFeaturePyramid(cfg.embed_dim, c, cfg.ln_eps)
+        if hp.mvit is not None:
+            cfg = hp.mvit
+            c = cfg.fpn_channels
+            self.backbone = mvit.MViT(cfg, self.dtype)
+            self.pyramid = mvit.FPN(self.backbone.out_channels, c)
+        else:
+            cfg = hp.vit
+            c = cfg.pyramid_channels
+            self.backbone = vit.ViT(cfg, hp.img_size, self.dtype)
+            self.pyramid = vit.SimpleFeaturePyramid(cfg.embed_dim, c, cfg.ln_eps)
         self.head_convs = nn.ModuleList(nn.Conv2d(c, c, 3, padding=1)
                                         for _ in range(cfg.head_convs))
         self.objectness = nn.Conv2d(c, hp.anchor_count, 1)
@@ -174,11 +181,15 @@ def init_model(model: RPN, generator: torch.Generator | None = None,
 
 
 def _init_pyramid_rpn(model: PyramidRPN, g: torch.Generator) -> None:
-    """detectron2's initialization of ViTDet's RPN: the ViT's linear layers
-    and absolute positions truncated normal at std 0.02, biases 0, LayerNorms
-    1 and 0, relative positions 0 (``rel_pos_zero_init``), the patch
-    embedding PyTorch's default; the pyramid's convs He-normal over fan-out
-    (``c2_msra_fill``); the RPN head normal at std 0.01, biases 0."""
+    """detectron2's initialization of a pyramid RPN: the backbone's linear
+    layers (and the ViT's absolute positions) truncated normal at std 0.02,
+    biases 0, LayerNorms 1 and 0, relative positions 0
+    (``rel_pos_zero_init``), the patch embedding and MViT's pooling convs
+    PyTorch's default (uniform over +-1/sqrt(fan_in); no bias on the pooling
+    convs); ViTDet's simple pyramid's convs He-normal over fan-out
+    (``c2_msra_fill``), the FPN's He-uniform with a = 1 over fan-in
+    (``c2_xavier_fill``), biases 0; the RPN head normal at std 0.01, biases
+    0."""
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, 0.0, 0.02, -0.04, 0.04, generator=g)
@@ -186,23 +197,27 @@ def _init_pyramid_rpn(model: PyramidRPN, g: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
-        elif isinstance(m, vit.Attention):
+        elif isinstance(m, (vit.Attention, mvit.PooledAttention)):
             nn.init.zeros_(m.rel_pos_h)
             nn.init.zeros_(m.rel_pos_w)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            if name == "backbone.patch_embed":
+            if name == "backbone.patch_embed" or ".pool_" in name:
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
                 nn.init.uniform_(m.weight, -bound, bound, generator=g)
-                nn.init.uniform_(m.bias, -bound, bound, generator=g)
+                if m.bias is not None:
+                    nn.init.uniform_(m.bias, -bound, bound, generator=g)
                 continue
-            if name.startswith("pyramid."):
+            if name.startswith("pyramid.fpn_"):
+                nn.init.kaiming_uniform_(m.weight, a=1, generator=g)
+            elif name.startswith("pyramid."):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
                                         generator=g)
             else:
                 nn.init.normal_(m.weight, 0.0, 0.01, generator=g)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-    nn.init.trunc_normal_(model.backbone.pos_embed, 0.0, 0.02, -0.04, 0.04, generator=g)
+    if isinstance(model.backbone, vit.ViT):
+        nn.init.trunc_normal_(model.backbone.pos_embed, 0.0, 0.02, -0.04, 0.04, generator=g)
 
 
 def to_device(model: nn.Module, device=None) -> nn.Module:
