@@ -146,6 +146,17 @@ them:
    plain version (bf16 tolerance) and time it beside the plain version,
    SDPA with the materialised bias (``library_ms``) and the bound (the
    ``relpos_attention_global`` and ``_window`` rows).
+15. ``mvit_serving`` (after ``vitdet_serving``): MViTv2-B's RPN on the 800 x
+   1088 canvas (seeded random weights) through
+   ``make_predict_fn(from_uint8=True)`` on 16 uint8 480x640 frames: 24
+   ``mvit_pool_kernel`` launches (one a block) and one proposal launch,
+   counted from 0; at each distinct (grid, stride_q, stride_kv, heads) of
+   its blocks the kernel's output in that call held against the plain
+   pooling in f32 on the same qkv product within one bf16 rounding; the
+   batch and the 24 launches timed (wrapper, kernel device time) beside the
+   plain pooling, the library pair it replaced (the split copy, cuDNN's
+   depthwise convs, PyTorch's LayerNorm) and the byte bound of those calls
+   (the ``kernels`` line's ``mvit_pool`` row).
 h5py, PIL and tensorboardX are reported in the ``setup`` line and then
 blocked for the run: no check depends on them.
 
@@ -1983,6 +1994,151 @@ def attention_check(torch, relpos_attention, vit, q, k, v, rel_h, rel_w, side, n
             "roofline_pct": 100.0 * bound / device if device else None}
 
 
+def mvit_pool_bound(calls):
+    """(bound ms, bytes) of MViT pooling calls, each (qkv shape (B, H, W,
+    3 C), stride_q, stride_kv): of q, k and v the values a 3 x 3 tap
+    reaches read once (every one at strides 1 and 2; at stride 4 the rows
+    and columns 4 y - 1 .. 4 y + 1 only) and the pooled tensors written
+    once, bf16, at the card's bandwidth."""
+    def reached(n, s):
+        return len({s * y + t - 1 for y in range(-(-n // s)) for t in range(3)} & set(range(n)))
+
+    nbytes = 0
+    for (b, h, w, c3), sq, skv in calls:
+        for s in (sq, skv, skv):
+            pixels = reached(h, s) * reached(w, s) + -(-h // s) * -(-w // s)
+            nbytes += b * pixels * c3 // 3 * 2
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def library_pool(torch, qkv, heads, stride_q, stride_kv, convs, norms, eps):
+    """The pooling as the port ran it before ``mvit_pool_kernel``: q, k and v
+    copied out of the qkv product, then each through cuDNN's depthwise conv
+    (the filters repeated per head, cast beforehand) and PyTorch's
+    LayerNorm over each head."""
+    import torch.nn.functional as F
+
+    split = qkv.unflatten(-1, (3, -1)).permute(3, 0, 1, 2, 4).contiguous()
+    out = []
+    for x, s, w, (g, b) in zip(split, (stride_q, stride_kv, stride_kv), convs, norms):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, s, 1, 1, x.shape[-1]).permute(0, 2, 3, 1)
+        y = y.reshape(*y.shape[:3], heads, -1)
+        out.append(F.layer_norm(y, y.shape[-1:], g, b, eps))
+    return out
+
+
+def mvit_phase(torch, args, dev, batch: int = 16):
+    """MViTv2-B's RPN on the 800 x 1088 canvas served as users call it:
+    seeded random weights and ``make_predict_fn(from_uint8=True)`` on
+    ``batch`` uint8 480x640 SyntheticVOC frames in host memory. With every
+    count at 0 just before: one ``mvit_pool_kernel`` launch a block (24) and
+    one proposal launch. Every block's pooling call in that batch is kept;
+    at each distinct (grid, stride_q, stride_kv, heads) the kernel's output
+    is held against the plain pooling in f32 on the same qkv product and the
+    weights on the bf16 grid the kernel reads (each value within 2^-8 of
+    itself, one bf16 rounding, plus 1e-5 of the largest for the other sum
+    order), its device time (torch.profiler) beside its byte bound. Times:
+    the batch; the 24 calls through the wrapper (CUDA events) and the
+    kernel's device time (torch.profiler); the plain pooling and the
+    library pair it replaced (``library_pool``) on the same products; their
+    byte bound (``mvit_pool_bound``)."""
+    from tpurpn_torch import get_hyper_params, get_model, init_model
+    from tpurpn_torch import predict as predict_module
+    from tpurpn_torch.backbones import mvit
+    from tpurpn_torch.data import SyntheticVOC
+    from tpurpn_torch.kernels.mvit_pool import mvit_pool, mvit_pool_plain
+    from tpurpn_torch.kernels.proposal import fused_proposals
+    from tpurpn_torch.model import to_device
+
+    torch.cuda.reset_peak_memory_stats()
+    hp = get_hyper_params("mvitv2_b")
+    model = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device="cpu")
+    predict = predict_module.make_predict_fn(to_device(model, dev), hp, from_uint8=True, device=dev)
+    frames = torch.from_numpy(next(SyntheticVOC(
+        num_samples=batch, raw_h=480, raw_w=640, seed=args.seed).batches(batch))[0])
+    predict(frames)  # warm-up: tables, cuDNN's plans
+    torch.cuda.synchronize()
+
+    calls, held = [], {}
+
+    def recorded(qkv, heads, sq, skv, convs, norms, eps):
+        out = orig(qkv, heads, sq, skv, convs, norms, eps)
+        calls.append((qkv, heads, sq, skv, convs, norms, eps))
+        held.setdefault((tuple(qkv.shape), sq, skv, heads), (len(calls) - 1, out))
+        return out
+
+    orig = mvit.mvit_pool
+    mvit_pool.launches = fused_proposals.launches = 0
+    mvit.mvit_pool = recorded
+    try:
+        with torch.no_grad():
+            out = predict(frames)
+        torch.cuda.synchronize()
+    finally:
+        mvit.mvit_pool = orig
+    launches = {"mvit_pool": mvit_pool.launches, "proposals": fused_proposals.launches}
+    n_blocks = hp.mvit.depth
+    require(launches == {"mvit_pool": n_blocks, "proposals": 1} and len(calls) == n_blocks,
+            f"mvit serving: launches {launches} for {n_blocks} blocks")
+    check_proposals(torch, out, batch, hp.test_nms_topn)
+
+    checked = {}
+    with torch.no_grad():
+        for (shape, sq, skv, heads), (i, got) in held.items():
+            qkv, _, _, _, convs, norms, eps = calls[i]
+            grid = (shape[1], shape[2])
+            on_grid = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+            want = mvit_pool_plain(qkv.float(), heads, sq, skv, [on_grid(w) for w in convs],
+                                   [(on_grid(g), on_grid(b)) for g, b in norms], eps)
+            err_max, used = 0.0, 0.0  # the largest error, and of its limit
+            for y, w in zip(got, want):
+                require(y.shape == w.shape and y.dtype == torch.bfloat16 and y.is_contiguous(),
+                        f"mvit_pool at block {i}: {tuple(y.shape)} {y.dtype}")
+                err = (y.float() - w).abs()
+                limit = 2 ** -8 * w.abs() + 1e-5 * float(w.abs().max())
+                require(bool((err <= limit).all()),
+                        f"mvit_pool vs plain at block {i} {grid} s {sq}/{skv}: max abs err "
+                        f"{float(err.max())}")
+                err_max = max(err_max, float(err.max()))
+                used = max(used, float((err / limit).max()))
+            del want
+            device, _ = kernel_device_ms(torch, lambda: mvit_pool(*calls[i]),
+                                         ("mvit_pool_kernel",), mvit_pool)
+            bound, _ = mvit_pool_bound([(shape, sq, skv)])
+            checked[f"block{i}"] = {"grid": list(grid), "stride_q": sq, "stride_kv": skv,
+                                    "heads": heads, "max_abs_err": err_max,
+                                    "max_err_of_limit": used, "device_ms": device,
+                                    "bound_ms": bound, "roofline_pct": 100.0 * bound / device}
+        torch.cuda.empty_cache()
+
+        inputs = [c[:4] for c in calls]
+        pool = lambda: [mvit_pool(*c) for c in calls]  # noqa: E731
+        lib_args = [(qkv, heads, sq, skv,
+                     [w.to(torch.bfloat16).repeat(heads, 1, 1, 1) for w in convs],
+                     [(g.to(torch.bfloat16), b.to(torch.bfloat16)) for g, b in norms], eps)
+                    for qkv, heads, sq, skv, convs, norms, eps in calls]
+        ms = time_ms(torch, lambda: predict(frames), 5, warmup=1)
+        pool_ms = time_ms(torch, pool, 10)
+        device, wrapper_device = kernel_device_ms(torch, pool, ("mvit_pool_kernel",), mvit_pool)
+        plain_ms = time_ms(torch, lambda: [mvit_pool_plain(*c) for c in calls], 3)
+        library_ms = time_ms(torch, lambda: [library_pool(torch, *c) for c in lib_args], 3)
+    peak = torch.cuda.max_memory_allocated()
+    bound, nbytes = mvit_pool_bound([(tuple(q.shape), sq, skv) for q, _, sq, skv in inputs])
+    phase = {"phase": "mvit_serving", "batch": batch, "frames": "SyntheticVOC 480x640 uint8",
+             "canvas": list(calls[0][0].shape[1:3]), "launches": launches, "checked": checked,
+             "ms_per_batch": ms, "img_per_s": batch / ms * 1e3, "memory_peak_bytes": peak,
+             "pool": {"calls": len(calls), "ms": pool_ms, "device_ms": device,
+                      "wrapper_device_ms": wrapper_device, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound, "bound_by": "bytes",
+                      "bound_bytes": nbytes,
+                      "roofline_pct": 100.0 * bound / device if device else None,
+                      "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
+                      "max_err_of_limit": max(c["max_err_of_limit"] for c in checked.values())}}
+    del predict, model, calls, held, lib_args, out, pool, inputs
+    torch.cuda.empty_cache()
+    return phase
+
+
 def check_proposals(torch, out, B, topn) -> None:
     boxes, scores, nv = out["roi_boxes"], out["roi_scores"], out["num_valid"]
     require(boxes.shape == (B, topn, 4) and scores.shape == (B, topn)
@@ -2053,7 +2209,7 @@ def main() -> int:
 
     # 1. build every kernel of the path, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    sources = ("proposal", "ir_stage", "targets", "nms", "prefix", "relpos_attention")
+    sources = ("proposal", "ir_stage", "targets", "nms", "prefix", "relpos_attention", "mvit_pool")
     _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2516,6 +2672,9 @@ def main() -> int:
     # ViTDet-B served from uint8 frames: NMS within a level on the card
     vd = vitdet_phase(torch, args, dev)
     emit({**vd, "nvidia_smi": smi})
+    # MViTv2-B served from uint8 frames: the pooling kernel at its published shapes
+    mv = mvit_phase(torch, args, dev)
+    emit({**mv, "nvidia_smi": smi})
 
     # 5. the CLIs and the trained weights, each with every count at 0 first
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2652,6 +2811,10 @@ def main() -> int:
            "route": "cuda", "source": "tpurpn_torch/kernels/csrc/relpos_attention.cu",
            "replaces": None, "launches": vd["launches"]["relpos_attention"],
            "match": "bf16 tolerance", **vd["attention"][kind]} for kind in ("global", "window")),
+        {"name": "mvit_pool", "kernel": "mvit_pool_kernel", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/mvit_pool.cu", "replaces": None,
+         "launches": mv["launches"]["mvit_pool"], "match": "one bf16 rounding",
+         "B": mv["batch"], **mv["pool"]},
         {"name": "fused_rpn_targets", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:355",

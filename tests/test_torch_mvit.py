@@ -23,6 +23,7 @@ Marked ``cuda`` (the card only; this file imports no JAX):
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_mvit.py``.
 """
 
+import copy
 import math
 import sys
 from pathlib import Path
@@ -37,7 +38,7 @@ from tpurpn_torch import predict as P
 from tpurpn_torch import profiling
 from tpurpn_torch.anchors import generate_level_anchors, level_sizes
 from tpurpn_torch.backbones import mvit
-from tpurpn_torch.kernels import proposal
+from tpurpn_torch.kernels import mvit_pool, proposal
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from portbench.reference import mvit as R  # noqa: E402
@@ -161,6 +162,112 @@ def test_rel_pos_table_is_get_rel_pos(q_size, k_size, rows):
     t = torch.randn((rows, 8), generator=torch.Generator().manual_seed(rows))
     got = mvit.rel_pos_table(t, q_size, k_size, torch.float32)
     assert torch.equal(got, R.get_rel_pos(q_size, k_size, t))
+
+
+# --- the pooling of q, k and v ---------------------------------------------------
+
+
+POOLS = {  # (stride_q, stride_kv, heads, an odd grid at the largest stride, d) of MViTv2's blocks
+    "q1-kv4-h1": (1, 4, 1, (50, 68), 96),  # MViTv2-B's
+    "q2-kv2-h2": (2, 2, 2, (25, 34), 96),
+    "q1-kv2-h2": (1, 2, 2, (25, 34), 96),
+    "q1-kv4-h2": (1, 4, 2, (50, 68), 96),
+    "q2-kv1-h4": (2, 1, 4, (25, 34), 96),
+    "q1-kv1-h4": (1, 1, 4, (13, 17), 96),
+    "q1-kv2-h4": (1, 2, 4, (25, 34), 96),
+    "q2-kv1-h8": (2, 1, 8, (25, 34), 96),
+    "q1-kv1-h8": (1, 1, 8, (13, 17), 96),
+    "L-q1-kv4-h2": (1, 4, 2, (50, 68), 72),  # MViTv2-L's stages, d = 72
+    "L-q2-kv2-h4": (2, 2, 4, (25, 34), 72),
+    "L-q2-kv1-h16": (2, 1, 16, (25, 34), 72),
+    "L-q1-kv1-h16": (1, 1, 16, (13, 17), 72),
+    "H-q1-kv4-h3": (1, 4, 3, (50, 68), 64),  # MViTv2-H's stages, d = 64
+    "H-q2-kv2-h6": (2, 2, 6, (25, 34), 64),
+    "H-q2-kv1-h24": (2, 1, 24, (25, 34), 64),
+    "H-q1-kv1-h24": (1, 1, 24, (13, 17), 64),
+}
+
+
+def pooling_module(stride_q, stride_kv, heads, seed, d=96):
+    """A block's PooledAttention with drawn filters and a non-trivial affine."""
+    m = mvit.PooledAttention(d * heads, d * heads, heads, stride_q, stride_kv, 0, 27, 3, True,
+                             1e-6)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n in "qkv":
+            getattr(m, f"pool_{n}").weight.copy_(torch.randn((d, 1, 3, 3), generator=g) * 0.3)
+            getattr(m, f"norm_{n}").weight.copy_(1 + 0.2 * torch.randn(d, generator=g))
+            getattr(m, f"norm_{n}").bias.copy_(0.2 * torch.randn(d, generator=g))
+    return m.eval()
+
+
+def pool_args(m):
+    return ([m.pool_q.weight, m.pool_k.weight, m.pool_v.weight],
+            [(n.weight, n.bias) for n in (m.norm_q, m.norm_k, m.norm_v)], m.norm_q.eps)
+
+
+def split_then_pool(m, qkv):
+    """The pooling as the port computed it until the kernel: q, k and v
+    copied out of the product, then each through one depthwise conv over
+    every head and the LayerNorm module."""
+    split = qkv.unflatten(-1, (3, -1)).permute(3, 0, 1, 2, 4).contiguous()
+    out = []
+    for x, n, s in zip(split, "qkv", (m.stride_q, m.stride_kv, m.stride_kv)):
+        conv = getattr(m, f"pool_{n}")
+        w = conv.weight.to(x.dtype).repeat(m.heads, 1, 1, 1)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, s, conv.padding, 1, x.shape[-1])
+        y = y.permute(0, 2, 3, 1)
+        out.append(getattr(m, f"norm_{n}")(y.reshape(*y.shape[:3], m.heads, -1)))
+    return out
+
+
+@pytest.mark.parametrize("name", list(POOLS))
+def test_plain_pooling_reads_the_product_in_place(name):
+    """The plain pooling fed the qkv product's strided q, k and v slices is
+    the split-then-pool it replaces, bit for bit, in f32 and bf16, at each
+    (stride_q, stride_kv, heads) of MViTv2-B and of the stages of MViTv2-L
+    and -H on odd grids (two images)."""
+    sq, skv, heads, hw, d = POOLS[name]
+    m = pooling_module(sq, skv, heads, len(name), d)
+    g = torch.Generator().manual_seed(heads)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((2, *hw, 3 * d * heads), generator=g).to(dtype)
+        with torch.no_grad():
+            got = mvit_pool.mvit_pool(qkv, heads, sq, skv, *pool_args(m))
+            want = split_then_pool(m, qkv)
+        for x, y, s in zip(got, want, (sq, skv, skv)):
+            assert x.shape == (2, -(-hw[0] // s), -(-hw[1] // s), heads, d)
+            assert x.dtype == dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", mvit_pool.WIDTHS)
+def test_kernel_pack_and_refused_shapes(d):
+    """The kernel's f32 pack holds each filter tap (ky * 3 + kx, channel),
+    the norm's weight and bias as their bf16 values, once per weight
+    version, at each head width the kernel takes; shapes neither path takes
+    raise on the CPU too."""
+    m = pooling_module(1, 2, 1, 5, d)
+    convs, norms, eps = pool_args(m)
+    with torch.no_grad():
+        pack = mvit_pool._pack(convs, norms)
+        assert pack.shape == (3, 11, d) and pack.dtype == torch.float32
+        assert mvit_pool._pack(convs, norms) is pack
+        for i, (w, (g, b)) in enumerate(zip(convs, norms)):
+            taps = w.to(torch.bfloat16).float()[:, 0]
+            for t in range(9):
+                assert torch.equal(pack[i, t], taps[:, t // 3, t % 3])
+            assert torch.equal(pack[i, 9], g.to(torch.bfloat16).float())
+            assert torch.equal(pack[i, 10], b.to(torch.bfloat16).float())
+        m.norm_v.bias.add_(1)
+        assert torch.equal(mvit_pool._pack(convs, norms)[2, 10],
+                           m.norm_v.bias.to(torch.bfloat16).float())
+    qkv = torch.zeros((1, 5, 7, 3 * d))
+    for bad in (lambda: mvit_pool.mvit_pool(qkv[..., :-1], 1, 1, 2, convs, norms, eps),
+                lambda: mvit_pool.mvit_pool(qkv, 2, 1, 2, convs, norms, eps),
+                lambda: mvit_pool.mvit_pool(qkv, 1, 1, 2, convs[:2], norms, eps),
+                lambda: mvit_pool.mvit_pool(qkv, 1, 0, 2, convs, norms, eps)):
+        with pytest.raises(ValueError):
+            bad()
 
 
 # --- the model ------------------------------------------------------------------
@@ -481,22 +588,110 @@ def test_pooled_core_on_the_card_matches_the_cpu(cuda, name):
     assert float((bare.float().cpu() - want).abs().mean()) > 0.1 * float(want.abs().mean())
 
 
+PUBLISHED = {  # the MViTv2 models' widths, depths and stages (detectron2's configurations)
+    "": {},
+    "L-": dict(embed_dim=144, depth=48, num_heads=2, last_block_indexes=(1, 7, 43, 47)),
+    "H-": dict(embed_dim=192, depth=80, num_heads=3, last_block_indexes=(3, 11, 71, 79)),
+}
+
+
+def published_pool_blocks():
+    """{name: (grid, stride_q, stride_kv, heads, d)}: each distinct pooling
+    of the blocks of MViTv2-B (unprefixed), -L and -H on the 800 x 1088
+    canvas (a 200 x 272 token grid), named by the blocks that run it."""
+    out = {}
+    for prefix, widths in PUBLISHED.items():
+        hw, seen = (200, 272), {}
+        for i, s in enumerate(T.config.MViTConfig(**widths).blocks()):
+            key = (hw, s["stride_q"], s["stride_kv"], s["heads"], s["dim_out"] // s["heads"])
+            seen.setdefault(key, []).append(i)
+            hw = tuple(-(-x // s["stride_q"]) for x in hw)
+        out.update({f"{prefix}block{b[0]}" + (f"-{b[-1]}" if len(b) > 1 else ""): key
+                    for key, b in seen.items()})
+    return out
+
+
+POOL_BLOCKS = published_pool_blocks()
+
+
 @pytest.mark.cuda
-def test_mvit_serves_on_the_card(cuda, params):
-    """The tiny model through make_predict_fn on the card: one proposal
+@pytest.mark.parametrize("name", list(POOL_BLOCKS))
+def test_pool_kernel_matches_plain(cuda, name):
+    """The kernel against the plain pooling in f32 at each distinct (grid,
+    stride_q, stride_kv, heads, d) of the blocks of MViTv2-B, -L and -H, two
+    images, reading a
+    non-contiguous view of a real qkv product (a block's qkv Linear on the
+    card, cropped). Weights on the bf16 grid, so that both see the kernel's
+    taps and affine. Tolerance: the kernel rounds its f32 result to bf16 once
+    (at most 2^-8 of the value) and sums in another order than the CPU (1e-5
+    of the largest output covers that where the value is near zero)."""
+    (hh, ww), sq, skv, heads, d = POOL_BLOCKS[name]
+    m = pooling_module(sq, skv, heads, hh + heads, d)
+    g = torch.Generator().manual_seed(ww)
+    with torch.no_grad():
+        for t in m.parameters():
+            t.copy_(t.to(torch.bfloat16).float())
+        card = copy.deepcopy(m).to(cuda)
+        x = torch.randn((2, hh + 1, ww + 2, d * heads), generator=g).to(torch.bfloat16)
+        qkv = card.qkv(x.to(cuda))[:, 1:, 2:]
+        assert not qkv.is_contiguous() and qkv.shape == (2, hh, ww, 3 * d * heads)
+        n0 = mvit_pool.mvit_pool.launches
+        got = mvit_pool.mvit_pool(qkv, heads, sq, skv, *pool_args(card))
+        torch.cuda.synchronize()
+        assert mvit_pool.mvit_pool.launches - n0 == 1
+        want = mvit_pool.mvit_pool_plain(qkv.float().cpu(), heads, sq, skv, *pool_args(m))
+    for y, w in zip(got, want):
+        assert y.shape == w.shape and y.dtype == torch.bfloat16 and y.is_contiguous()
+        torch.testing.assert_close(y.float().cpu(), w, rtol=2 ** -8,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_pool_kernel_refuses_what_it_does_not_take(cuda):
+    """No fallback on the card: heads other than 64, 72 or 96 wide (the
+    tiny test model's 16), an f32 product, a
+    stride of 3 and a call autograd would differentiate raise."""
+    m = pooling_module(1, 2, 1, 3).to(cuda)
+    qkv = torch.randn((1, 9, 11, 288), device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        assert [t.shape[1:3] for t in mvit_pool.mvit_pool(qkv, 1, 1, 2, *pool_args(m))] == \
+            [(9, 11), (5, 6), (5, 6)]
+        narrow = pooling_module(1, 2, 1, 3, d=16).to(cuda)
+        for bad in (lambda: mvit_pool.mvit_pool(qkv[..., :48], 1, 1, 2, *pool_args(narrow)),
+                    lambda: mvit_pool.mvit_pool(qkv.float(), 1, 1, 2, *pool_args(m)),
+                    lambda: mvit_pool.mvit_pool(qkv, 1, 3, 2, *pool_args(m))):
+            with pytest.raises(ValueError):
+                bad()
+    with pytest.raises(ValueError):
+        mvit_pool.mvit_pool(qkv.detach().requires_grad_(), 1, 1, 2, *pool_args(m))
+
+
+@pytest.mark.cuda
+def test_mvit_serves_on_the_card(cuda):
+    """The published MViTv2-B (portbench's configuration: widths, depth and
+    the weights' draw) on the 96 x 160 canvas through make_predict_fn on the
+    card: one pooling kernel launch a block (24 a forward) and one proposal
     kernel launch a batch, proposals the reference's within two of its
     counts and nine in ten within 0.02 of one it keeps."""
-    hp = hyper_params("bfloat16")
+    import json
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
+                      / "mvitv2_b-800-serve.json").read_text())
+    cfg.update(min_size_test=96, max_size_test=160, pre_nms_topk=200, post_nms_topk=100)
+    hp = T.get_hyper_params("mvitv2_b", canvas_rule=(96, 160, 32), pre_nms_topn=200,
+                            test_nms_topn=100, compute_dtype="bfloat16")
+    params = R.draw_params(cfg, cfg["init"]["seed"])
     m = T.get_model(hp)
     m.load_state_dict(params)
-    fn = T.make_predict_fn(T.model.to_device(m, cuda), hp, from_uint8=True, device=cuda)
-    n0 = proposal.fused_proposals.launches
+    fn = T.make_predict_fn(T.model.to_device(m.eval(), cuda), hp, from_uint8=True, device=cuda)
+    n0, p0 = mvit_pool.mvit_pool.launches, proposal.fused_proposals.launches
     out = fn(frames())
     torch.cuda.synchronize()
-    assert proposal.fused_proposals.launches - n0 == 1
+    assert mvit_pool.mvit_pool.launches - n0 == 24
+    assert proposal.fused_proposals.launches - p0 == 1
     boxes, logits, hw, cv = R.candidates({k: v.to(cuda) for k, v in params.items()},
-                                         frames().to(cuda), CFG)
-    ref = R.select(boxes, logits, hw, cv, CFG)
+                                         frames().to(cuda), cfg)
+    ref = R.select(boxes, logits, hw, cv, cfg)
     assert np.abs(out["num_valid"].cpu().numpy() - ref["num_valid"]).max() <= 2
     d = (out["roi_boxes"].cpu()[:, :, None] - torch.from_numpy(ref["roi_boxes"])[:, None])
     assert float((d.abs().amax(-1).amin(-1) < 0.02).float().mean()) > 0.9

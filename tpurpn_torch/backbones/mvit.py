@@ -39,10 +39,11 @@ channels in h heads of d = C_out / h; its settings are
 
 Layout and compute follow ``vit.py``: NHWC tokens, NCHW views with
 channels-last strides for the convs, bf16 compute from f32 parameters read
-through their compute copies. q, k and v are split from the qkv product
-once; the pooling convs run on all heads at once as one depthwise conv of
-C_out channels, their d filters repeated h times (a derived weight,
-``cache.derived``).
+through their compute copies. The pooling of q, k and v (convs and norms)
+is ``kernels.mvit_pool``: on the card one hand-written kernel a block that
+reads q, k and v in place from the qkv product; on the CPU one depthwise
+conv of C_out channels a tensor on the product's strided slice, its d
+filters repeated h times, then the LayerNorm.
 
 The attention core is :func:`pooled_attention_core`: on the CPU the
 equations in f32; on the card the bf16 bias ``rel_h[..., :, None] +
@@ -52,9 +53,10 @@ and gathered tables are derived weights, made once per weight version and
 grid pair. ``kernels.relpos_attention`` takes one square grid shared by
 queries and keys with d <= 64 and does not compute these cores.
 
-Spans: ``rpn.attn.pool`` around each block's pooling of q, k and v (convs
-and LayerNorms); ``rpn.attn.window`` and ``rpn.attn.global`` around each
-core (tables, bias, softmax and products; the window partition outside).
+Spans: ``rpn.attn.pool`` around each block's pooling of q, k and v (one
+``mvit_pool`` launch on the card); ``rpn.attn.window`` and
+``rpn.attn.global`` around each core (tables, bias, softmax and products;
+the window partition outside).
 ``pooled_attention_core.calls`` counts the cores by kind: 21 window and 3
 global a forward of MViTv2-B.
 """
@@ -69,6 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..cache import compute_copy, derived
+from ..kernels.mvit_pool import mvit_pool
 from ..profiling import span
 from .vit import LayerNorm, Linear, Mlp
 
@@ -189,23 +192,15 @@ class PooledAttention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(table, d))
         self.rel_pos_w = nn.Parameter(torch.zeros(table, d))
 
-    def _pool(self, x: torch.Tensor, name: str, stride: int) -> torch.Tensor:
-        """(B, H, W, C_out) -> (B, H', W', h, d): the depthwise conv at
-        ``stride`` on every head, then the LayerNorm over d."""
-        conv = getattr(self, f"pool_{name}")
-        w = derived((conv.weight,), ("per_head", self.heads, x.dtype),
-                    lambda: conv.weight.to(x.dtype).repeat(self.heads, 1, 1, 1))
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, conv.padding, 1, x.shape[-1])
-        y = y.permute(0, 2, 3, 1)
-        return getattr(self, f"norm_{name}")(y.reshape(*y.shape[:3], self.heads, -1))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, _ = x.shape
-        qkv = self.qkv(x).unflatten(-1, (3, -1)).permute(3, 0, 1, 2, 4).contiguous()
+        qkv = self.qkv(x)
         with span("rpn.attn.pool"):
-            q = self._pool(qkv[0], "q", self.stride_q)
-            k = self._pool(qkv[1], "k", self.stride_kv)
-            v = self._pool(qkv[2], "v", self.stride_kv)
+            q, k, v = mvit_pool(qkv, self.heads, self.stride_q, self.stride_kv,
+                                [self.pool_q.weight, self.pool_k.weight, self.pool_v.weight],
+                                [(n.weight, n.bias) for n in (self.norm_q, self.norm_k,
+                                                              self.norm_v)],
+                                self.norm_q.eps)
         q_hw, kv_hw = q.shape[1:3], k.shape[1:3]
         if self.window:
             qw, kw = self.q_window, self.kv_window

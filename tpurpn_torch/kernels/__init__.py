@@ -15,5 +15,10 @@ raise). ``<wrapper>.launches`` counts the kernel calls.
   ``tpurpn/kernels/nms_pallas.py::nms_pallas_keep``;
 * ``prefix.prefix_pointwise`` and ``prefix.prefix_depthwise`` — replace no
   TPU kernel: the serving prefix's 1x1 and depthwise convolutions (which
-  ``tpurpn`` left to XLA) with their bias, ReLU6 and residual fused.
+  ``tpurpn`` left to XLA) with their bias, ReLU6 and residual fused;
+* ``relpos_attention.relpos_attention`` — replaces no TPU kernel: ViTDet's
+  attention cores with decomposed relative positions;
+* ``mvit_pool.mvit_pool`` — replaces no TPU kernel: MViTv2's pooling of q,
+  k and v (depthwise convs and LayerNorms) read in place from the qkv
+  product.
 """

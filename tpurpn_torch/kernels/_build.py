@@ -59,6 +59,9 @@ SIGNATURES = {
     "relpos_attention": {
         "relpos_attention": (P, P, P, P, P, P, I, I, I, I, I, I, F, P),
     },
+    "mvit_pool": {
+        "mvit_pool": (P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, F, P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
