@@ -41,7 +41,7 @@ def test_hyper_params_match():
     """Every field of tpurpn's is the port's; the port's others are the
     feature-pyramid fields, at their defaults (no levels) here."""
     extra = {"level_strides", "box_weights", "scale_clamp", "pixel_mean", "pixel_std", "vit",
-             "mvit", "canvas_rule"}
+             "mvit", "swin", "canvas_rule"}
     plain = tpurpn_torch.HyperParams()
     for backbone in ("vgg16", "mobilenet_v2"):
         for img in (128, 136, 500):

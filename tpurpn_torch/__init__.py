@@ -25,9 +25,12 @@ the step on the card) and the space-to-depth uint8 serving stem
 (``inference.fast_uint8_forward``). Beyond ``tpurpn``: the serving prefix's
 kernels (``kernels.prefix``) and ViTDet-B's RPN (``get_hyper_params(
 "vitdet_b")``: a plain ViT, a simple feature pyramid, five anchor levels and
-NMS within a level) and MViTv2-B's (``get_hyper_params("mvitv2_b")``: pooling
+NMS within a level), MViTv2-B's (``get_hyper_params("mvitv2_b")``: pooling
 attention, hybrid window and global blocks, a top-down FPN, on a canvas that
-follows the frames), which the port serves and does not train.
+follows the frames) and Swin-B's (``get_hyper_params("swin_b")``:
+shifted-window attention with a learned relative-position bias, patch
+merging, the same FPN and canvas), which the port serves and does not
+train.
 """
 
 from .config import HyperParams, feature_map_shape_for, get_hyper_params

@@ -46,7 +46,7 @@ from typing import Tuple
 
 VALID_BACKBONES = ("vgg16", "mobilenet_v2")
 # backbones with a feature pyramid: anchors, NMS and the box transform by level
-MULTI_LEVEL_BACKBONES = ("vitdet_b", "mvitv2_b")
+MULTI_LEVEL_BACKBONES = ("vitdet_b", "mvitv2_b", "swin_b")
 
 
 def _vgg16_feature_map_shape(img_size: int) -> int:
@@ -165,6 +165,25 @@ class MViTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SwinConfig:
+    """The Swin Transformer: shifted-window attention with a learned
+    relative-position bias, patch merging between its four stages, a
+    LayerNorm on each stage's output, and the top-down FPN on them
+    (``backbones.swin``). Defaults: Swin-B as mmdetection's Swin
+    configuration of its authors sets it."""
+
+    embed_dim: int = 128  # stage 1's width; each later stage doubles it
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 7  # the shift is window_size // 2, every second block of a stage
+    mlp_ratio: float = 4.0
+    patch_size: int = 4
+    ln_eps: float = 1e-5
+    fpn_channels: int = 256
+    head_convs: int = 1  # 3x3 convs with ReLU before the 1x1 outputs
+
+
+@dataclasses.dataclass(frozen=True)
 class HyperParams:
     """Immutable hyper-parameter bundle; hashable -> usable as a jit static arg."""
 
@@ -197,6 +216,7 @@ class HyperParams:
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     vit: ViTConfig | None = None
     mvit: MViTConfig | None = None
+    swin: SwinConfig | None = None
     # (short side, longest side, size divisor) of a canvas that follows the
     # frames' shape (``canvas_of``); () for the img_size square
     canvas_rule: Tuple[int, ...] = ()
@@ -233,8 +253,10 @@ class HyperParams:
         """Each pyramid level's (h, w) on ``canvas`` (default: ``canvas``).
         ViTDet: P2-P5 at 4, 2, 1 and 1/2 times the ViT's stride-16 map (a
         2x2 max-pool floors); MViTv2: the patch embedding's stride-4 map,
-        then each stage's stride-2 pooling (3x3, padding 1: it ceils); P6
-        one in two of P5's."""
+        then each stage's stride-2 pooling (3x3, padding 1: it ceils);
+        Swin: the canvas over the patch size (ceiled, as its patch
+        embedding pads), then each patch merging's halving (it pads to
+        even: it ceils); P6 one in two of P5's."""
         canvas = canvas or self.canvas
         if canvas is None:
             raise ValueError(f"{self.backbone}'s canvas follows the frames: pass the canvas "
@@ -243,9 +265,12 @@ class HyperParams:
             gh, gw = canvas[0] // self.vit.patch_size, canvas[1] // self.vit.patch_size
             shapes = [(4 * gh, 4 * gw), (2 * gh, 2 * gw), (gh, gw), (gh // 2, gw // 2)]
         else:
-            m = self.mvit
-            shapes = [tuple((s + 2 * m.patch_padding - m.patch_kernel) // m.patch_stride + 1
-                            for s in canvas)]
+            if self.swin is not None:
+                shapes = [tuple(-(-s // self.swin.patch_size) for s in canvas)]
+            else:
+                m = self.mvit
+                shapes = [tuple((s + 2 * m.patch_padding - m.patch_kernel) // m.patch_stride + 1
+                                for s in canvas)]
             for _ in range(3):
                 shapes.append(tuple(-(-s // 2) for s in shapes[-1]))
         return tuple(shapes) + (tuple(-(-s // 2) for s in shapes[-1]),)
@@ -268,10 +293,11 @@ def get_hyper_params(backbone: str = "vgg16", **kwargs) -> HyperParams:
     Any field can be overridden by keyword; ``feature_map_shape`` is derived
     from the backbone + img_size unless explicitly given. For ``vitdet_b``,
     ``vit`` may be a ``ViTConfig`` or a dict of its fields to change; for
-    ``mvitv2_b``, ``mvit`` an ``MViTConfig`` or such a dict.
+    ``mvitv2_b``, ``mvit`` an ``MViTConfig`` or such a dict; for ``swin_b``,
+    ``swin`` a ``SwinConfig`` or such a dict.
     """
-    if backbone == "mvitv2_b":
-        return _mvit_hyper_params(backbone, **kwargs)
+    if backbone in ("mvitv2_b", "swin_b"):
+        return _canvas_hyper_params(backbone, **kwargs)
     if backbone in MULTI_LEVEL_BACKBONES:
         return _vitdet_hyper_params(backbone, **kwargs)
     if backbone not in VALID_BACKBONES:
@@ -304,19 +330,34 @@ _SEQUENCE_FIELDS = ("anchor_ratios", "anchor_scales", "variances", "level_stride
                     "pixel_mean", "pixel_std", "canvas_rule")
 
 
-def _mvit_hyper_params(backbone: str, **kwargs) -> HyperParams:
-    """MViTv2-B's RPN on detectron2's 800 / 1333 test canvas (see the module
-    note)."""
-    mvit = kwargs.pop("mvit", None)
-    if isinstance(mvit, dict):
-        mvit = MViTConfig(**mvit)
-    mvit = mvit or MViTConfig()
-    if len(mvit.last_block_indexes) != 4 or max(mvit.last_block_indexes) != mvit.depth - 1:
-        raise ValueError(f"last_block_indexes {mvit.last_block_indexes}: four stages ending "
-                         f"with block {mvit.depth - 1}")
-    for key in _SEQUENCE_FIELDS:
-        if key in kwargs:
-            kwargs[key] = tuple(kwargs[key])
+def _net_config(backbone: str, net) -> MViTConfig | SwinConfig:
+    """The backbone's configuration from ``None`` (the published one), a
+    dict of fields to change or the dataclass, checked."""
+    cls = MViTConfig if backbone == "mvitv2_b" else SwinConfig
+    if isinstance(net, dict):
+        net = cls(**net)
+    net = net or cls()
+    if cls is MViTConfig:
+        last = net.last_block_indexes
+        if len(last) != 4 or max(last) != net.depth - 1:
+            raise ValueError(f"last_block_indexes {last}: four stages ending with block "
+                             f"{net.depth - 1}")
+    elif (len(net.depths) != 4 or len(net.num_heads) != 4
+          or any((net.embed_dim << i) % h for i, h in enumerate(net.num_heads))):
+        raise ValueError(f"depths {net.depths}, num_heads {net.num_heads}: four stages, each "
+                         f"width (embed_dim {net.embed_dim}, doubled a stage) a multiple of "
+                         "its heads")
+    return net
+
+
+def _canvas_hyper_params(backbone: str, **kwargs) -> HyperParams:
+    """MViTv2-B's or Swin-B's RPN on detectron2's 800 / 1333 test canvas
+    (see the module note)."""
+    key = "mvit" if backbone == "mvitv2_b" else "swin"
+    net = _net_config(backbone, kwargs.pop(key, None))
+    for k in _SEQUENCE_FIELDS:
+        if k in kwargs:
+            kwargs[k] = tuple(kwargs[k])
     fields = dict(_PYRAMID_RPN, canvas_rule=(800, 1333, 32))
     fields.update(kwargs)
     rule = fields["canvas_rule"]
@@ -325,10 +366,10 @@ def _mvit_hyper_params(backbone: str, **kwargs) -> HyperParams:
                          "multiple of 32, the top-down pyramid's stride)")
     img_size = int(fields.pop("img_size", rule[0]))
     fm = fields.pop("feature_map_shape", img_size // 16)
-    hp = HyperParams(backbone=backbone, img_size=img_size, feature_map_shape=int(fm), mvit=mvit,
-                     **fields)
+    hp = HyperParams(backbone=backbone, img_size=img_size, feature_map_shape=int(fm),
+                     **{key: net}, **fields)
     if len(hp.anchor_scales) != len(hp.level_strides) or len(hp.level_strides) != 5:
-        raise ValueError("mvitv2_b has five levels (P2-P6), one anchor size each")
+        raise ValueError(f"{backbone} has five levels (P2-P6), one anchor size each")
     return hp
 
 

@@ -18,7 +18,8 @@ batch-statistics mode (``backbones.mobilenet_v2.BatchNorm``).
 ``hp.multi_level`` builds ``PyramidRPN`` instead: the backbone and neck that
 ``hp`` names (``vitdet_b``: the ViT and its simple feature pyramid,
 ``backbones.vit``; ``mvitv2_b``: the multiscale ViT and the top-down FPN,
-``backbones.mvit``), and detectron2's ``StandardRPNHead`` shared over the
+``backbones.mvit``; ``swin_b``: the Swin Transformer, ``backbones.swin``,
+and the same FPN), and detectron2's ``StandardRPNHead`` shared over the
 five levels (``head_convs`` 3x3 convs with ReLU, then 1x1 convs to A
 objectness logits and 4A deltas in (dx, dy, dw, dh) order).
 """
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .backbones import MobileNetV2Backbone, VGG16Backbone
-from .backbones import mvit, vit
+from .backbones import mvit, swin, vit
 from .backbones.mobilenet_v2 import BatchNorm, Conv
 from .cache import compute_copy
 from .config import HyperParams
@@ -97,10 +98,11 @@ class PyramidRPN(nn.Module):
         self.hp = hp
         self.fold_bn = False
         self.dtype = getattr(torch, hp.compute_dtype)
-        if hp.mvit is not None:
-            cfg = hp.mvit
+        if hp.mvit is not None or hp.swin is not None:
+            cfg = hp.mvit or hp.swin
             c = cfg.fpn_channels
-            self.backbone = mvit.MViT(cfg, self.dtype)
+            self.backbone = (mvit.MViT(cfg, self.dtype) if hp.mvit is not None
+                             else swin.SwinTransformer(cfg, self.dtype))
             self.pyramid = mvit.FPN(self.backbone.out_channels, c)
         else:
             cfg = hp.vit
@@ -184,22 +186,27 @@ def _init_pyramid_rpn(model: PyramidRPN, g: torch.Generator) -> None:
     """detectron2's initialization of a pyramid RPN: the backbone's linear
     layers (and the ViT's absolute positions) truncated normal at std 0.02,
     biases 0, LayerNorms 1 and 0, relative positions 0
-    (``rel_pos_zero_init``), the patch embedding and MViT's pooling convs
-    PyTorch's default (uniform over +-1/sqrt(fan_in); no bias on the pooling
-    convs); ViTDet's simple pyramid's convs He-normal over fan-out
-    (``c2_msra_fill``), the FPN's He-uniform with a = 1 over fan-in
-    (``c2_xavier_fill``), biases 0; the RPN head normal at std 0.01, biases
-    0."""
+    (``rel_pos_zero_init``), Swin's relative-position bias tables normal at
+    std 0.02 (its ``trunc_normal_``, whose bounds of +-2 cut nothing), the
+    patch embedding and MViT's pooling convs PyTorch's default (uniform over
+    +-1/sqrt(fan_in); no bias on the pooling convs); ViTDet's simple
+    pyramid's convs He-normal over fan-out (``c2_msra_fill``), the FPN's
+    He-uniform with a = 1 over fan-in (``c2_xavier_fill``), biases 0; the
+    RPN head normal at std 0.01, biases 0."""
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, 0.0, 0.02, -0.04, 0.04, generator=g)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
         elif isinstance(m, (vit.Attention, mvit.PooledAttention)):
             nn.init.zeros_(m.rel_pos_h)
             nn.init.zeros_(m.rel_pos_w)
+        elif isinstance(m, swin.WindowAttention):
+            nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, 0.02, -2.0, 2.0,
+                                  generator=g)
         elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             if name == "backbone.patch_embed" or ".pool_" in name:
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
