@@ -157,6 +157,18 @@ them:
    plain pooling, the library pair it replaced (the split copy, cuDNN's
    depthwise convs, PyTorch's LayerNorm) and the byte bound of those calls
    (the ``kernels`` line's ``mvit_pool`` row).
+16. ``swin_serving`` (after ``mvit_serving``): Swin-B's RPN on the 800 x
+   1088 canvas (seeded random weights, the tables at std 1 and a qkv bias
+   drawn, so that both are live) through ``make_predict_fn(from_uint8=True)``
+   on 16 uint8 480x640 frames: 24 ``swin_attention_kernel`` launches (one
+   a block) and one proposal launch, counted from 0; at each distinct
+   (grid, heads, shift, masked) of its blocks the kernel's output in that
+   call held against the plain version in f32 on the same qkv product
+   (within 2^-8 of each value plus 2^-8 of the largest |v|); the batch,
+   the 24 launches (wrapper, kernel device time) and each stage's launches
+   timed beside their byte bound, the plain version and the path the
+   kernel replaced (pad, gather, SDPA with the expanded bias, gather back:
+   ``library_swin``) (the ``kernels`` line's ``swin_attention`` row).
 h5py, PIL and tensorboardX are reported in the ``setup`` line and then
 blocked for the run: no check depends on them.
 
@@ -2139,6 +2151,187 @@ def mvit_phase(torch, args, dev, batch: int = 16):
     return phase
 
 
+def swin_attention_bound(shapes):
+    """(bound ms, bytes) of Swin attention cores, each the (B, H, W, 3 C)
+    shape of its qkv product: q, k and v read and the output written once
+    over the grid padded to windows of 7, bf16, at the card's bandwidth
+    (``portbench.counts_swin.attn_bound``'s count)."""
+    nbytes = sum(b * -(-h // 7) * 7 * -(-w // 7) * 7 * c3 // 3 * 4 * 2 for b, h, w, c3 in shapes)
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def library_swin(torch, qkv, bias, table, heads, shift, masked):
+    """The core as the port ran it before ``swin_attention_kernel``, as one
+    call: the block's C-wide tokens zero-padded and gathered into window
+    order (``window_order``), cuDNN's SDPA on the window-ordered product
+    with the bf16 bias as its mask (in a shifted block the bias plus the
+    mask, expanded over the images), one gather back to the grid
+    (``grid_order``). The window-ordered product (the Linear on the
+    gathered tokens) is made once beforehand; the tokens are the product's
+    first C channels, of the same shape."""
+    import torch.nn.functional as F
+
+    from tpurpn_torch.kernels import swin_attention as sa
+
+    b, hh, ww, c3 = qkv.shape
+    c, dev = c3 // 3, qkv.device
+    hp, wp = sa.padded(hh, 7), sa.padded(ww, 7)
+    full = bias.expand(b, hp, wp, c3).clone()
+    full[:, :hh, :ww] = qkv
+    win = full.reshape(b, hp * wp, c3).index_select(1, sa.window_order(hh, ww, 7, shift, dev))
+    q, k, v = win.reshape(-1, 49, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    del full
+
+    def rows16(t, lead=()):  # rows padded to 16 keys in memory, as SDPA's mask took them
+        out = torch.empty((*lead, *t.shape[:-1], 64), dtype=t.dtype, device=dev)[..., :49]
+        out.copy_(t)
+        return out
+
+    bias_f = sa.relative_bias(table, 7, torch.float32)
+    if masked:
+        mask = rows16((bias_f[None] + sa.shift_mask(hp, wp, 7, shift, dev)[:, None]).to(q.dtype))
+    else:
+        mask = rows16(bias_f.to(q.dtype)[None])
+    x = qkv[..., :c]
+    fwd, back = sa.window_order(hh, ww, 7, shift, dev), sa.grid_order(hh, ww, 7, shift, dev)
+
+    def run():
+        xw = F.pad(x, (0, 0, 0, wp - ww, 0, hp - hh)).reshape(b, hp * wp, c).index_select(1, fwd)
+        m = rows16(mask, (b,)).flatten(0, 1) if masked else mask
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        return xw, out.transpose(1, 2).reshape(b, -1, c).index_select(1, back)
+    return run
+
+
+def swin_phase(torch, args, dev, batch: int = 16):
+    """Swin-B's RPN on the 800 x 1088 canvas served as users call it:
+    seeded random weights and ``make_predict_fn(from_uint8=True)`` on
+    ``batch`` uint8 480x640 SyntheticVOC frames in host memory. With every
+    count at 0 just before: one ``swin_attention_kernel`` launch a block
+    (24) and one proposal launch. Every block's core call in that batch is
+    kept; at each distinct (grid, heads, shift, masked) the kernel's output
+    in that call is held against the plain version in f32 on the same qkv
+    product (each value within 2^-8 of itself plus 2^-8 of the largest |v|:
+    the output's rounding to bf16 and P's for P V, whose error is at most
+    2^-9 of a probability times a value of v), its device time
+    (torch.profiler) beside its byte bound. Times: the batch; the 24 calls
+    through the wrapper (CUDA events), the kernel's device time and each
+    stage's (torch.profiler); the plain version and the path it replaced
+    (``library_swin``) on the same products; their byte bound
+    (``swin_attention_bound``)."""
+    from tpurpn_torch import get_hyper_params, get_model, init_model
+    from tpurpn_torch import predict as predict_module
+    from tpurpn_torch.backbones import swin
+    from tpurpn_torch.data import SyntheticVOC
+    from tpurpn_torch.kernels.proposal import fused_proposals
+    from tpurpn_torch.kernels.swin_attention import swin_attention, swin_attention_plain
+    from tpurpn_torch.model import to_device
+
+    torch.cuda.reset_peak_memory_stats()
+    hp = get_hyper_params("swin_b")
+    model = init_model(get_model(hp), torch.Generator().manual_seed(args.seed), device="cpu")
+    g = torch.Generator().manual_seed(args.seed)
+    with torch.no_grad():  # tables at std 1 (the benchmark's) and a qkv bias: live terms
+        for m in model.modules():
+            if isinstance(m, swin.WindowAttention):
+                m.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
+                m.qkv.bias.normal_(0.0, 0.5, generator=g)
+    predict = predict_module.make_predict_fn(to_device(model, dev), hp, from_uint8=True, device=dev)
+    frames = torch.from_numpy(next(SyntheticVOC(
+        num_samples=batch, raw_h=480, raw_w=640, seed=args.seed).batches(batch))[0])
+    predict(frames)  # warm-up: the kernel library, cuDNN's plans
+    torch.cuda.synchronize()
+
+    calls, held = [], {}
+
+    def recorded(qkv, qkv_bias, table, heads, window, shift, masked):
+        out = orig(qkv, qkv_bias, table, heads, window, shift, masked)
+        calls.append((qkv, qkv_bias, table, heads, window, shift, masked))
+        held.setdefault((tuple(qkv.shape), heads, shift, masked), (len(calls) - 1, out))
+        return out
+
+    orig = swin.swin_attention
+    swin_attention.launches = fused_proposals.launches = 0
+    swin.swin_attention = recorded
+    try:
+        with torch.no_grad():
+            out = predict(frames)
+        torch.cuda.synchronize()
+    finally:
+        swin.swin_attention = orig
+    launches = {"swin_attention": swin_attention.launches, "proposals": fused_proposals.launches}
+    n_blocks = sum(hp.swin.depths)
+    require(launches == {"swin_attention": n_blocks, "proposals": 1} and len(calls) == n_blocks,
+            f"swin serving: launches {launches} for {n_blocks} blocks")
+    check_proposals(torch, out, batch, hp.test_nms_topn)
+
+    checked = {}
+    with torch.no_grad():
+        for (shape, heads, shift, masked), (i, got) in held.items():
+            qkv, bias, table = calls[i][:3]
+            want = swin_attention_plain(qkv.float(), bias.float(), table.float(), heads, 7, shift,
+                                        masked)
+            require(got.shape == want.shape and got.dtype == torch.bfloat16,
+                    f"swin_attention at block {i}: {tuple(got.shape)} {got.dtype}")
+            c = shape[-1] // 3
+            vmax = max(float(qkv[..., 2 * c:].abs().max()), float(bias[2 * c:].abs().max()))
+            err = (got.float() - want).abs()
+            limit = 2 ** -8 * (want.abs() + vmax)
+            require(bool((err <= limit).all()),
+                    f"swin_attention vs plain at block {i} {shape[1:3]} shift {shift}: max abs "
+                    f"err {float(err.max())}")
+            del want
+            device, _ = kernel_device_ms(torch, lambda: swin_attention(*calls[i]),
+                                         ("swin_attention_kernel",), swin_attention)
+            bound, _ = swin_attention_bound([shape])
+            checked[f"block{i}"] = {"grid": list(shape[1:3]), "heads": heads, "shift": shift,
+                                    "masked": masked, "max_abs_err": float(err.max()),
+                                    "max_err_of_limit": float((err / limit).max()),
+                                    "device_ms": device, "bound_ms": bound,
+                                    "roofline_pct": 100.0 * bound / device}
+        torch.cuda.empty_cache()
+
+        cores = lambda sel=calls: [swin_attention(*c) for c in sel]  # noqa: E731
+        stages = {}
+        for c in calls:
+            stages.setdefault(tuple(c[0].shape[1:3]), []).append(c)
+        by_stage = {}
+        for grid, sel in stages.items():
+            device, _ = kernel_device_ms(torch, lambda sel=sel: cores(sel),
+                                         ("swin_attention_kernel",), swin_attention)
+            bound, _ = swin_attention_bound([tuple(c[0].shape) for c in sel])
+            by_stage["x".join(map(str, grid))] = {
+                "launches": len(sel), "device_ms": device, "bound_ms": bound,
+                "roofline_pct": 100.0 * bound / device}
+        ms = time_ms(torch, lambda: predict(frames), 5, warmup=1)
+        core_ms = time_ms(torch, cores, 10)
+        device, wrapper_device = kernel_device_ms(torch, cores, ("swin_attention_kernel",),
+                                                  swin_attention)
+        plain_ms = time_ms(torch, lambda: [swin_attention_plain(*c) for c in calls], 3)
+        library_ms = 0.0
+        for c in calls:  # one block's inputs at a time: the expanded masks are large
+            run = library_swin(torch, *c[:4], c[5], c[6])
+            library_ms += time_ms(torch, run, 3)
+            del run
+    peak = torch.cuda.max_memory_allocated()
+    bound, nbytes = swin_attention_bound([tuple(c[0].shape) for c in calls])
+    phase = {"phase": "swin_serving", "batch": batch, "frames": "SyntheticVOC 480x640 uint8",
+             "canvas": [4 * x for x in calls[0][0].shape[1:3]], "launches": launches,
+             "checked": checked, "ms_per_batch": ms, "img_per_s": batch / ms * 1e3,
+             "memory_peak_bytes": peak, "by_stage": by_stage,
+             "attention": {"calls": len(calls), "ms": core_ms, "device_ms": device,
+                           "wrapper_device_ms": wrapper_device, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bound, "bound_by": "bytes",
+                           "bound_bytes": nbytes,
+                           "roofline_pct": 100.0 * bound / device if device else None,
+                           "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
+                           "max_err_of_limit": max(c["max_err_of_limit"]
+                                                   for c in checked.values())}}
+    del predict, model, calls, held, out, cores, stages
+    torch.cuda.empty_cache()
+    return phase
+
+
 def check_proposals(torch, out, B, topn) -> None:
     boxes, scores, nv = out["roi_boxes"], out["roi_scores"], out["num_valid"]
     require(boxes.shape == (B, topn, 4) and scores.shape == (B, topn)
@@ -2209,7 +2402,8 @@ def main() -> int:
 
     # 1. build every kernel of the path, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    sources = ("proposal", "ir_stage", "targets", "nms", "prefix", "relpos_attention", "mvit_pool")
+    sources = ("proposal", "ir_stage", "targets", "nms", "prefix", "relpos_attention", "mvit_pool",
+               "swin_attention")
     _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2675,6 +2869,9 @@ def main() -> int:
     # MViTv2-B served from uint8 frames: the pooling kernel at its published shapes
     mv = mvit_phase(torch, args, dev)
     emit({**mv, "nvidia_smi": smi})
+    # Swin-B served from uint8 frames: the window attention kernel at its published shapes
+    sw = swin_phase(torch, args, dev)
+    emit({**sw, "nvidia_smi": smi})
 
     # 5. the CLIs and the trained weights, each with every count at 0 first
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2815,6 +3012,10 @@ def main() -> int:
          "source": "tpurpn_torch/kernels/csrc/mvit_pool.cu", "replaces": None,
          "launches": mv["launches"]["mvit_pool"], "match": "one bf16 rounding",
          "B": mv["batch"], **mv["pool"]},
+        {"name": "swin_attention", "kernel": "swin_attention_kernel", "route": "cuda",
+         "source": "tpurpn_torch/kernels/csrc/swin_attention.cu", "replaces": None,
+         "launches": sw["launches"]["swin_attention"],
+         "match": "P and the output rounded to bf16", "B": sw["batch"], **sw["attention"]},
         {"name": "fused_rpn_targets", "route": "cuda",
          "source": "tpurpn_torch/kernels/csrc/targets.cu",
          "replaces": "tpurpn/kernels/target_pallas.py:355",

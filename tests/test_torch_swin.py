@@ -151,28 +151,117 @@ def test_window_order_is_pad_roll_partition(hw, shift):
 # --- the core and the blocks ------------------------------------------------------
 
 
+def reference_core(x, w, b, table, heads, shift, masked, pad="bias"):
+    """The reference's way on (B, H, W, C) tokens: zero pad, roll, window
+    cut, the qkv Linear (w, b) on the windows (a pad token's q, k and v are
+    b), the core with the table's bias and, where ``masked``, the shift
+    mask, then merge, roll back and crop. The faults: ``pad="zeros"`` zero-
+    fills the pad tokens' q, k and v; ``pad="masked"`` masks the pad keys."""
+    n_img, hh, ww, c = x.shape
+    hp, wp = padded((hh, ww))
+    xp = torch.nn.functional.pad(x, (0, 0, 0, wp - ww, 0, hp - hh))
+    real = torch.nn.functional.pad(torch.ones((n_img, hh, ww, 1)), (0, 0, 0, wp - ww, 0, hp - hh))
+    if shift:
+        xp, real = (torch.roll(t, (-shift, -shift), (1, 2)) for t in (xp, real))
+    win, _ = R.window_partition(xp, 7)
+    n, d = win.shape[0], c // heads
+    real = R.window_partition(real, 7)[0].reshape(n, 49)
+    qkv = torch.nn.functional.linear(win.reshape(n, 49, c), w, b)
+    if pad == "zeros":
+        qkv = qkv * real[:, :, None]
+    q, k, v = qkv.reshape(n, 49, 3, heads, d).permute(2, 0, 3, 1, 4)
+    scores = (q * d ** -0.5) @ k.transpose(-2, -1) + R.relative_position_bias(table, 7)
+    if masked:
+        scores = scores + R.shift_mask(hp, wp, 7, shift).repeat(n_img, 1, 1)[:, None]
+    if pad == "masked":
+        scores = scores.masked_fill(real[:, None, None, :] == 0, float("-inf"))
+    out = (scores.softmax(-1) @ v).transpose(1, 2).reshape(n, 7, 7, c)
+    y = R.window_unpartition(out, 7, (hp, wp), (hp, wp))
+    if shift:
+        y = torch.roll(y, (shift, shift), (1, 2))
+    return y[:, :hh, :ww]
+
+
+def window_order_path(x, w, b, table, heads, shift, masked):
+    """The port's layout before the core addressed the grid itself: the
+    tokens zero-padded and gathered into window order (``window_order``),
+    the qkv Linear on the windows, the f32 core, one gather back
+    (``grid_order``)."""
+    n_img, hh, ww, c = x.shape
+    hp, wp = padded((hh, ww))
+    cpu = torch.device("cpu")
+    xp = torch.nn.functional.pad(x, (0, 0, 0, wp - ww, 0, hp - hh)).reshape(n_img, -1, c)
+    win = xp.index_select(1, swin.window_order(hh, ww, 7, shift, cpu))
+    qkv = torch.nn.functional.linear(win, w, b).reshape(-1, 49, 3, heads, c // heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    mask = swin.shift_mask(hp, wp, 7, shift, cpu) if masked else None
+    out = swin._plain_core(q, k, v, swin.relative_bias(table, 7, torch.float32), mask)
+    out = out.transpose(1, 2).reshape(n_img, -1, c)
+    return out.index_select(1, swin.grid_order(hh, ww, 7, shift, cpu)).reshape(x.shape)
+
+
+def core_problem(hw, heads, seed, n_img=2):
+    """Tokens, a qkv Linear with a non-zero bias (std 1) and a table at std
+    1 for a core of ``heads`` heads of 32 on an ``hw`` grid."""
+    g = torch.Generator().manual_seed(seed)
+    c = 32 * heads
+    x = torch.randn((n_img, *hw, c), generator=g)
+    w = torch.randn((3 * c, c), generator=g) * c ** -0.5
+    b = torch.randn((3 * c,), generator=g)
+    table = torch.randn((169, heads), generator=g)
+    return x, w, b, table
+
+
 @pytest.mark.parametrize("shifted", [False, True])
 def test_core_against_the_reference(shifted):
-    """The port's core (its CPU path) against the reference's
-    ``WindowAttention`` core on the same q, k, v: four images of a 14 x 21
-    padded grid (6 windows), 4 heads; f32 rounding apart. The bias and
-    the mask are live terms."""
-    g = torch.Generator().manual_seed(5)
-    n, h, d = 4 * 6, 4, 32
-    q, k, v = (torch.randn((n, h, 49, d), generator=g) for _ in range(3))
-    table = torch.randn((169, h), generator=g)
-    grid = (14, 21) if shifted else None
-    got = swin.window_attention_core(q, k, v, table, 7, grid)
-    bias = R.relative_position_bias(table, 7)
-    scores = (q * d ** -0.5) @ k.transpose(-2, -1) + bias
-    if shifted:
-        scores = scores + R.shift_mask(14, 21, 7, 3).repeat(4, 1, 1)[:, None]
-    close(got, scores.softmax(-1) @ v, 1e-5)
-    other = swin.window_attention_core(q, k, v, torch.zeros_like(table), 7, grid)
+    """The port's core (its CPU path) on the qkv product of a 14 x 21 grid
+    (6 windows, no pad) of four images, 4 heads, against the reference's
+    roll, window cut, Linear and core; f32 rounding apart. The bias, the
+    roll and the mask are live terms."""
+    x, w, b, table = core_problem((14, 21), 4, 5, n_img=4)
+    qkv = torch.nn.functional.linear(x, w, b)
+    shift = 3 if shifted else 0
+    got = swin.window_attention_core(qkv, b, table, 4, 7, shift, shifted)
+    assert got.shape == x.shape
+    close(got, reference_core(x, w, b, table, 4, shift, shifted), 1e-5)
+    other = swin.window_attention_core(qkv, b, torch.zeros_like(table), 4, 7, shift, shifted)
     assert (other - got).abs().max() > 1e-2
     if shifted:
-        bare = swin.window_attention_core(q, k, v, table, 7, None)
+        bare = swin.window_attention_core(qkv, b, table, 4, 7, shift, False)
         assert (bare - got).abs().max() > 1e-2
+        still = swin.window_attention_core(qkv, b, table, 4, 7, 0, False)
+        assert (still - bare).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("hw", [(9, 11), (13, 19)], ids=str)
+def test_core_on_ragged_grids(hw, shift):
+    """On grids that pad to whole windows (9 x 11 to 14 x 14, 13 x 19 to 14
+    x 21), with a non-zero qkv bias, the core on the grid's qkv product is
+    the window-order path's and the reference's (pad tokens' k and v the
+    bias, keys like any other), f32 rounding apart."""
+    x, w, b, table = core_problem(hw, 2, hw[0] + shift)
+    qkv = torch.nn.functional.linear(x, w, b)
+    masked = shift > 0
+    got = swin.window_attention_core(qkv, b, table, 2, 7, shift, masked)
+    close(got, window_order_path(x, w, b, table, 2, shift, masked), 1e-5)
+    close(got, reference_core(x, w, b, table, 2, shift, masked), 1e-5)
+
+
+@pytest.mark.parametrize("fault", ["zeros", "masked"])
+def test_pad_keys_other_than_the_bias_fail(fault):
+    """A core whose pad keys are zero-filled or masked misses the
+    reference's output on a ragged grid by far more than f32 rounding: the
+    comparisons above see the pad keys."""
+    x, w, b, table = core_problem((9, 11), 2, 9)
+    want = reference_core(x, w, b, table, 2, 3, True)
+    qkv = torch.nn.functional.linear(x, w, b)
+    close(swin.window_attention_core(qkv, b, table, 2, 7, 3, True), want, 1e-5)
+    bad = reference_core(x, w, b, table, 2, 3, True, pad=fault)
+    assert (bad - want).abs().max() > 1e-2
+    if fault == "zeros":  # the plain version fed a zero bias zero-fills its pad keys
+        zero_filled = swin.window_attention_core(qkv, torch.zeros_like(b), table, 2, 7, 3, True)
+        close(zero_filled, bad, 1e-5)
 
 
 def block_module(params, stage, j):
@@ -324,9 +413,11 @@ def test_span_tree_and_counters(params):
     assert names[0] == "rpn.predict" and spans[0][1] is None
     assert kids(0) == ["rpn.upload", "rpn.stem", "rpn.backbone", "rpn.pyramid", "rpn.head",
                        "rpn.decode", "rpn.select"]
-    inner = [n for kind in ("window", "shifted") * 4
-             for n in ("rpn.attn.layout", f"rpn.attn.{kind}", "rpn.attn.layout")]
-    assert kids(names.index("rpn.backbone")) == inner
+    # each block's core, whole; on the CPU the plain version's pad and
+    # gathers inside it (the card's kernel has none)
+    cores = [j for j, s in enumerate(spans) if s[1] == names.index("rpn.backbone")]
+    assert [names[j] for j in cores] == [f"rpn.attn.{kind}" for kind in ("window", "shifted") * 4]
+    assert all(kids(j) == ["rpn.attn.layout", "rpn.attn.layout"] for j in cores)
     assert swin.window_attention_core.calls["window"] - calls["window"] == 4
     assert swin.window_attention_core.calls["shifted"] - calls["shifted"] == 4
     # the published model: 12 window and 12 shifted cores a forward
@@ -375,41 +466,92 @@ def cuda():
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("shifted", [False, True])
 def test_core_on_the_card_matches_the_cpu(cuda, stage, shifted):
-    """The card's core (SDPA with the bf16 bias, and the mask in a shifted
-    block) against the CPU's plain equations in f32 on the same bf16 q, k,
-    v, at Swin-B's stage grids and heads (two images; the tables at std
-    1). Tolerance: the card rounds the bias (and bias plus mask) to bf16
-    (a logit moves by up to 2^-8 of a bias of a few units, about 0.02), P
-    to bf16 for P V and its output to bf16; so each output within 2^-5 of
-    the largest and the mean error under 2 % of the mean magnitude.
-    Without the bias the error is of the outputs' own size."""
-    hw, heads = PUBLISHED_GRIDS[stage], 4 << stage
-    hp, wp = padded(hw)
-    n = 2 * (hp // 7) * (wp // 7)
-    g = torch.Generator().manual_seed(stage + 10 * shifted)
-    q, k, v = (torch.randn((n, 49, heads, 32), generator=g).to(torch.bfloat16).transpose(1, 2)
-               for _ in range(3))
+    """The card's core (one ``swin_attention_kernel`` launch) against the
+    CPU's plain version (the equations in f32) on the same bf16 qkv product
+    at Swin-B's stage grids, unpadded (they pad by 3 x 1, 5 x 4, 6 x 2 and
+    3 x 1 tokens), and heads (two images; a qkv bias at std 1, the pad
+    keys; the tables at std 1). Tolerance: the card rounds P to bf16 for P
+    V (at most 2^-9 of a probability, so of the largest |v|) and its output
+    to bf16, as the plain version rounds its own (2^-9 of the value each):
+    each output within 2^-8 of itself plus 2^-8 of the largest |v|, and
+    the mean error under 0.5 % of the mean magnitude. Without the bias the
+    error is of the outputs' own size."""
+    card_against_cpu(cuda, PUBLISHED_GRIDS[stage], 4 << stage, shifted, stage + 10 * shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [3, 6])
+def test_core_on_the_card_with_a_partial_head_group(cuda, heads):
+    """Swin-T's and -S's heads of 32 (3, 6, 12, 24): the kernel's last group
+    of four heads is partial, and the channels past the last head are the
+    next tensor's (k's after q's); held as above on Swin-T's stride-32 grid
+    (25 x 34 at 800 x 1088), shifted."""
+    card_against_cpu(cuda, (25, 34), heads, True, heads)
+
+
+def card_against_cpu(cuda, hw, heads, shifted, seed):
+    from tpurpn_torch.kernels.swin_attention import swin_attention
+
+    c = 32 * heads
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((2, *hw, 3 * c), generator=g).to(torch.bfloat16)
+    bias = torch.randn((3 * c,), generator=g).to(torch.bfloat16)
     table = torch.randn((169, heads), generator=g)
-    grid = (hp, wp) if shifted else None
-    want = swin.window_attention_core(q, k, v, table, 7, grid).float()
-    dev = [t.to(cuda) for t in (q, k, v)]
+    shift = 3 if shifted else 0
+    want = swin.window_attention_core(qkv, bias, table, heads, 7, shift, shifted).float()
+    dev = [t.to(cuda) for t in (qkv, bias, table)]
+    n0 = swin_attention.launches
     with torch.no_grad():
-        got = swin.window_attention_core(*dev, table.to(cuda), 7, grid)
-        bare = swin.window_attention_core(*dev, torch.zeros_like(table, device=cuda), 7, grid)
-    assert got.shape == q.shape and got.dtype == torch.bfloat16
+        got = swin.window_attention_core(*dev, heads, 7, shift, shifted)
+        bare = swin.window_attention_core(dev[0], dev[1], torch.zeros_like(dev[2]), heads, 7,
+                                          shift, shifted)
+    assert swin_attention.launches - n0 == 2
+    assert got.shape == qkv.shape[:3] + (c,) and got.dtype == torch.bfloat16
+    vmax = max(float(qkv[..., 2 * c:].abs().max()), float(bias[2 * c:].abs().max()))
     err = (got.float().cpu() - want).abs()
-    assert float(err.max()) <= 2 ** -5 * float(want.abs().max())
-    assert float(err.mean()) < 0.02 * float(want.abs().mean())
+    assert bool((err <= 2 ** -8 * (want.abs() + vmax)).all()), float(err.max())
+    assert float(err.mean()) < 0.005 * float(want.abs().mean())
     assert float((bare.float().cpu() - want).abs().mean()) > 0.1 * float(want.abs().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d64", "window8", "float32", "autograd", "heads64"])
+def test_kernel_refuses_on_the_card(cuda, case):
+    """A CUDA call the kernel does not take raises ValueError, with no
+    fallback: heads of 64, a window of 8, f32, a call autograd would
+    differentiate, more than 32 heads."""
+    from tpurpn_torch.kernels.swin_attention import swin_attention
+
+    heads, d, window, dtype = 4, 32, 7, torch.bfloat16
+    if case == "d64":
+        d = 64
+    elif case == "window8":
+        window = 8
+    elif case == "float32":
+        dtype = torch.float32
+    elif case == "heads64":
+        heads = 64
+    qkv = torch.randn((1, 14, 14, 3 * heads * d), device=cuda).to(dtype)
+    bias = torch.zeros((3 * heads * d,), device=cuda, dtype=dtype)
+    table = torch.zeros(((2 * window - 1) ** 2, heads), device=cuda)
+    if case == "autograd":
+        table.requires_grad_(True)
+    n0 = swin_attention.launches
+    with pytest.raises(ValueError):
+        swin_attention(qkv, bias, table, heads, window, 3, True)
+    assert swin_attention.launches == n0
 
 
 @pytest.mark.cuda
 def test_swin_serves_on_the_card(cuda):
     """The published Swin-B (portbench's configuration: widths, depth and the
     weights' draw) on a 256 x 320 canvas through make_predict_fn on the
-    card: 12 window and 12 shifted cores a forward and one proposal kernel
-    launch a batch, proposals the reference's within two of its counts and
-    nine in ten within 0.02 of one it keeps."""
+    card: 12 window and 12 shifted cores a forward, each one
+    ``swin_attention_kernel`` launch, and one proposal kernel launch a
+    batch, proposals the reference's within two of its counts and nine in
+    ten within 0.02 of one it keeps."""
+    from tpurpn_torch.kernels.swin_attention import swin_attention
+
     cfg = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
                       / "swin_b-800-serve.json").read_text())
     cfg.update(min_size_test=256, max_size_test=320, pre_nms_topk=200, post_nms_topk=100)
@@ -420,8 +562,10 @@ def test_swin_serves_on_the_card(cuda):
     m.load_state_dict(params)
     fn = T.make_predict_fn(T.model.to_device(m.eval(), cuda), hp, from_uint8=True, device=cuda)
     calls, p0 = dict(swin.window_attention_core.calls), proposal.fused_proposals.launches
+    k0 = swin_attention.launches
     out = fn(frames())
     torch.cuda.synchronize()
+    assert swin_attention.launches - k0 == 24
     assert swin.window_attention_core.calls["window"] - calls["window"] == 12
     assert swin.window_attention_core.calls["shifted"] - calls["shifted"] == 12
     assert proposal.fused_proposals.launches - p0 == 1

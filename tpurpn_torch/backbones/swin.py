@@ -41,182 +41,55 @@ eps 1e-5; exact GELU; ``config.SwinConfig``):
   own (``norm0``-``norm3``): strides P to 8P, C_0 to 8 C_0 channels.
 
 Layout and compute follow ``vit.py`` and ``mvit.py``: NHWC tokens, bf16
-compute from f32 parameters read through their compute copies. Pad, roll
-and window cut are one pad and one gather of ``norm1``'s output in window
-order (``window_order``: the rolled partition's source of each window
-token, made once a grid and shift); the merge back, roll and crop are one
-gather of ``proj``'s output (``grid_order``). The attention core is
-:func:`window_attention_core`: on the CPU the equations in f32, in chunks
-of windows; on the card ``F.scaled_dot_product_attention`` with the bias
-as its ``attn_mask`` (bf16, rows padded to 16 keys in memory), broadcast
-over images and windows in an unshifted block; in a shifted block the
-bias plus the mask, (nW, h, M^2, M^2), a derived weight of the table and
-the grid, expanded over the batch's images, since SDPA's mask broadcasts
-over whole dimensions only. The gathered bias and the shifted blocks'
-bias plus mask are derived weights, made once per weight version (and
-grid: ``cache.derived``). ``kernels.relpos_attention`` takes neither a
-table bias nor a mask.
+compute from f32 parameters read through their compute copies. A block
+runs ``qkv`` on ``norm1``'s (B, H, W) grid tokens, then the attention core
+:func:`window_attention_core` on that product, then ``proj`` on the grid:
+the pad (a pad token's k and v are the bias of ``qkv``, what the Linear
+gives a zero token), the roll, the window cut, their inverse and the crop
+are the core's indexing. The core is ``kernels.swin_attention``: on the
+card one ``swin_attention_kernel`` launch a block that reads the product
+in grid order and makes the table bias and the mask on the SM; on the CPU
+its plain version (one pad and one gather into window order,
+``window_order``, the equations in f32, one gather back, ``grid_order``).
+The index maps, the bias and the mask live there; they are imported here.
 
 Spans: ``rpn.attn.window`` around each unshifted core and
-``rpn.attn.shifted`` around each shifted one (bias, mask, softmax and
-products); ``rpn.attn.layout`` around each block's pad, roll and window
-cut, and around its merge back, roll back and crop.
-``window_attention_core.calls`` counts the cores by kind: 12 window and
-12 shifted a forward of Swin-B.
+``rpn.attn.shifted`` around each shifted one (on the card the kernel
+whole; on the CPU the plain version, whose pad and gathers open
+``rpn.attn.layout`` inside it). ``window_attention_core.calls`` counts
+the cores by kind: 12 window and 12 shifted a forward of Swin-B. The
+block's shift lives on its attention (``SwinBlock.shift`` reads and sets
+``WindowAttention.shift``); the mask applies where the block passes its
+padded grid to the attention, the roll wherever the shift is not 0.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cache import compute_copy, derived
+from ..cache import compute_copy
+from ..kernels.swin_attention import (  # noqa: F401  (the index maps, bias and mask)
+    _plain_core, grid_order, padded, relative_bias, relative_index, shift_mask, swin_attention,
+    window_order)
 from ..profiling import span
 from .vit import LayerNorm, Linear, Mlp
 
-MASKED = -100.0  # Swin's additive mask between the shifted windows' regions
 
-
-def relative_index(window: int) -> torch.Tensor:
-    """(M^2, M^2) int64: each pair of window positions' row of the table."""
-    y, x = torch.meshgrid(torch.arange(window), torch.arange(window), indexing="ij")
-    y, x = y.reshape(-1), x.reshape(-1)
-    return ((y[:, None] - y[None, :] + window - 1) * (2 * window - 1)
-            + x[:, None] - x[None, :] + window - 1)
-
-
-def relative_bias(table: torch.Tensor, window: int, dtype: torch.dtype) -> torch.Tensor:
-    """(h, M^2, M^2) ``B[h][a, b] = table[index[a, b], h]`` in ``dtype``,
-    once per weight version (``cache.derived``)."""
-    def make():
-        t = window * window
-        return table[relative_index(window).to(table.device).reshape(-1)].reshape(
-            t, t, -1).permute(2, 0, 1).to(dtype)
-
-    return derived((table,), ("swin_bias", window, dtype), make)
-
-
-def _no_grad_tensor(make):
-    """``make()`` outside inference mode and autograd, so that a tensor made
-    once a grid can serve later calls whatever their mode."""
-    with torch.inference_mode(False), torch.no_grad():
-        return make()
-
-
-@functools.lru_cache(maxsize=64)
-def shift_mask(hp: int, wp: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
-    """(nW, M^2, M^2) f32: ``MASKED`` between the positions of a window whose
-    region labels differ, 0 elsewhere, on the rolled (Hp, Wp) grid; made
-    once a grid and device."""
-    def make():
-        edges = lambda n: torch.bucketize(torch.arange(n), torch.tensor(  # noqa: E731
-            [n - window, n - shift]), right=True)
-        label = edges(hp)[:, None] * 3 + edges(wp)[None, :]
-        nh, nw = hp // window, wp // window
-        w = label.reshape(nh, window, nw, window).permute(0, 2, 1, 3).reshape(nh * nw, -1)
-        mask = torch.zeros(w.shape[0], w.shape[1], w.shape[1])
-        return mask.masked_fill_(w[:, :, None] != w[:, None, :], MASKED).to(device)
-
-    return _no_grad_tensor(make)
-
-
-@functools.lru_cache(maxsize=64)
-def window_order(h: int, w: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
-    """(nW M^2,) int64: for each token of the rolled grid's windows, in
-    window order (windows row-major, then positions row-major), its position
-    in the zero-padded (Hp, Wp) grid, flattened; made once a grid."""
-    def make():
-        hp, wp = -(-h // window) * window, -(-w // window) * window
-        ys = (torch.arange(hp) + shift) % hp
-        xs = (torch.arange(wp) + shift) % wp
-        src = ys[:, None] * wp + xs[None, :]  # the rolled grid's sources
-        nh, nw = hp // window, wp // window
-        return src.reshape(nh, window, nw, window).permute(0, 2, 1, 3).reshape(-1).to(device)
-
-    return _no_grad_tensor(make)
-
-
-@functools.lru_cache(maxsize=64)
-def grid_order(h: int, w: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
-    """(H W,) int64: for each token of the (H, W) grid, row-major, its
-    position among the window-ordered tokens (``window_order``'s inverse,
-    cropped); made once a grid."""
-    def make():
-        hp, wp = -(-h // window) * window, -(-w // window) * window
-        inv = torch.empty(hp * wp, dtype=torch.int64)
-        inv[window_order(h, w, window, shift, torch.device("cpu"))] = torch.arange(hp * wp)
-        return inv.reshape(hp, wp)[:h, :w].reshape(-1).to(device)
-
-    return _no_grad_tensor(make)
-
-
-def _padded_rows(x: torch.Tensor, lead: Tuple[int, ...] = ()) -> torch.Tensor:
-    """``x`` (..., T, T) copied, broadcast over the leading dims ``lead``,
-    into rows padded to a multiple of 16 keys in memory (the attention
-    kernels' alignment), the pad not in the view."""
-    t = x.shape[-1]
-    out = torch.empty((*lead, *x.shape[:-1], -(-t // 16) * 16), dtype=x.dtype,
-                      device=x.device)[..., :t]
-    out.copy_(x)
-    return out
-
-
-def _attn_bias(table: torch.Tensor, window: int, grid: Optional[Tuple[int, int]],
-               dtype: torch.dtype) -> torch.Tensor:
-    """The card's mask for SDPA, once per weight version (and grid): (1, h,
-    T, T) the bias, or with the shifted block's padded ``grid`` (nW, h, T,
-    T) the bias plus the mask, rounded once to ``dtype``."""
-    if grid is None:
-        return derived((table,), ("swin_sdpa_bias", window, dtype),
-                       lambda: _padded_rows(relative_bias(table, window, dtype)[None]))
-
-    def make():
-        mask = shift_mask(*grid, window, window // 2, table.device)
-        return _padded_rows((relative_bias(table, window, torch.float32)[None]
-                             + mask[:, None]).to(dtype))
-
-    return derived((table,), ("swin_sdpa_bias", window, grid, dtype), make)
-
-
-def _plain_core(q, k, v, bias, mask) -> torch.Tensor:
-    """The core's equations in f32 over (N, h, T, d) q, k, v, the (h, T, T)
-    bias and the (nW, T, T) mask (window n has mask n mod nW) or None, in
-    chunks of at most 2^26 scores; the result in q's dtype, (N, h, T, d)."""
-    n, h, t, d = q.shape
-    out = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    step = max(1, (1 << 26) // (h * t * t))
-    bias = bias.float()
-    for a in range(0, n, step):
-        qf, kf, vf = (x[a:a + step].float() for x in (q, k, v))
-        scores = (qf * d ** -0.5) @ kf.transpose(-2, -1) + bias
-        if mask is not None:
-            scores = scores + mask[torch.arange(a, a + qf.shape[0]) % mask.shape[0]][:, None]
-        out[a:a + step] = (scores.softmax(-1) @ vf).to(q.dtype)
-    return out
-
-
-def window_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          table: torch.Tensor, window: int,
-                          grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """Attention of (N, h, M^2, d) q, k, v (any strides: the qkv product's
-    views), N = images x windows, within each window with the table's
-    bias, and with the shift mask of the padded ``grid`` (Hp, Wp) where it
-    is given (a shifted block); returns (N, h, M^2, d). The CPU runs the
-    equations in f32; the card calls SDPA."""
-    kind = "window" if grid is None else "shifted"
+def window_attention_core(qkv: torch.Tensor, qkv_bias: torch.Tensor, table: torch.Tensor,
+                          heads: int, window: int, shift: int, masked: bool) -> torch.Tensor:
+    """Swin's attention core on a block's (B, H, W, 3 C) qkv product over
+    its grid (``qkv_bias``: the Linear's bias, the pad tokens' q, k and v),
+    with the table's bias, rolled by ``shift`` and, where ``masked``, with
+    the shift mask; returns (B, H, W, C) in grid order
+    (``kernels.swin_attention``)."""
+    kind = "shifted" if shift else "window"
     _CORE_CALLS[kind] += 1
     with span(f"rpn.attn.{kind}"):
-        if q.device.type == "cpu":
-            mask = None if grid is None else shift_mask(*grid, window, window // 2, q.device)
-            return _plain_core(q, k, v, relative_bias(table, window, torch.float32), mask)
-        bias = _attn_bias(table, window, grid, q.dtype)
-        if grid is not None:  # (nW, h, T, T) repeated over the images
-            bias = _padded_rows(bias, (q.shape[0] // bias.shape[0],)).flatten(0, 1)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        return swin_attention(qkv, qkv_bias, table, heads, window, shift, masked)
 
 
 _CORE_CALLS = {"window": 0, "shifted": 0}
@@ -224,46 +97,48 @@ window_attention_core.calls = _CORE_CALLS
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, heads: int, window: int):
+    def __init__(self, dim: int, heads: int, window: int, shift: int):
         super().__init__()
-        self.heads, self.window = heads, window
+        self.heads, self.window, self.shift = heads, window, shift
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * window - 1) ** 2,
                                                                      heads))
 
     def forward(self, x: torch.Tensor, grid: Optional[Tuple[int, int]]) -> torch.Tensor:
-        """(N, M^2, C) window tokens -> (N, M^2, C); ``grid``: the padded grid
-        of a shifted block, whose mask applies, or None."""
-        n, t, c = x.shape
-        qkv = self.qkv(x).reshape(n, t, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
-        out = window_attention_core(qkv[0], qkv[1], qkv[2], self.relative_position_bias_table,
-                                    self.window, grid)
-        return self.proj(out.transpose(1, 2).reshape(n, t, c))
+        """(B, H, W, C) grid tokens -> (B, H, W, C); ``grid``: the padded grid
+        of a shifted block, whose mask applies, or None (no mask; the roll
+        follows ``shift`` either way)."""
+        qkv = self.qkv(x)
+        out = window_attention_core(qkv, compute_copy(self.qkv.bias, qkv.dtype),
+                                    self.relative_position_bias_table, self.heads, self.window,
+                                    self.shift, grid is not None)
+        return self.proj(out)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float,
                  eps: float):
         super().__init__()
-        self.window, self.shift = window, shift
+        self.window = window
         self.norm1 = LayerNorm(dim, eps=eps)
-        self.attn = WindowAttention(dim, heads, window)
+        self.attn = WindowAttention(dim, heads, window, shift)
         self.norm2 = LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    @property
+    def shift(self) -> int:
+        return self.attn.shift
+
+    @shift.setter
+    def shift(self, value: int) -> None:
+        self.attn.shift = value
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, hh, ww, c = x.shape
-        m, s = self.window, self.shift
-        hp, wp = -(-hh // m) * m, -(-ww // m) * m
-        xn = self.norm1(x)
-        with span("rpn.attn.layout"):
-            xn = F.pad(xn, (0, 0, 0, wp - ww, 0, hp - hh)).reshape(b, hp * wp, c)
-            win = xn.index_select(1, window_order(hh, ww, m, s, x.device))
-        y = self.attn(win.reshape(-1, m * m, c), (hp, wp) if s else None)
-        with span("rpn.attn.layout"):
-            y = y.reshape(b, -1, c).index_select(1, grid_order(hh, ww, m, s, x.device))
-        x = x + y.reshape(b, hh, ww, c)
+        _, hh, ww, _ = x.shape
+        m = self.window
+        grid = (padded(hh, m), padded(ww, m)) if self.shift else None
+        x = x + self.attn(self.norm1(x), grid)
         return x + self.mlp(self.norm2(x))
 
 

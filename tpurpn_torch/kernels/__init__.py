@@ -20,5 +20,9 @@ raise). ``<wrapper>.launches`` counts the kernel calls.
   attention cores with decomposed relative positions;
 * ``mvit_pool.mvit_pool`` — replaces no TPU kernel: MViTv2's pooling of q,
   k and v (depthwise convs and LayerNorms) read in place from the qkv
-  product.
+  product;
+* ``swin_attention.swin_attention`` — replaces no TPU kernel: Swin's
+  shifted-window attention cores, reading the qkv product in grid order
+  with the pad, roll, window cut, table bias and shift mask in their
+  indexing.
 """

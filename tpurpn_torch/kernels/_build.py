@@ -62,6 +62,9 @@ SIGNATURES = {
     "mvit_pool": {
         "mvit_pool": (P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, F, P),
     },
+    "swin_attention": {
+        "swin_attention": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
